@@ -1,0 +1,189 @@
+"""Port models against the JAX package.
+
+The flagship FullNet (resnet50 reg + hrnet32 rootnet) at image_size 64 and
+depth_dim 8: the JAX variables are made from a numpy seed on the tree that
+`FullNet.init` would build (traced with `jax.eval_shape`, no compile), BN
+running statistics included, then carried into the port with
+`fullnet_state_dict_from_jax`. Both run in eval mode on the same crops.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from horopose_tpu import constants as JC
+from horopose_tpu.models import FullNet as JaxFullNet
+from horopose_tpu.tools.torch_weights import \
+    convert_fullnet_reference_checkpoint
+from horopose_tpu_torch.models import FullNet
+from horopose_tpu_torch.pipelines.common import random_state_dict
+from horopose_tpu_torch.tools.jax_weights import fullnet_state_dict_from_jax
+
+# the f32 bound the repo's parity tests use, relative to the output's max
+REL_TOL = 1e-4
+OUTPUT_KEYS = ["pose", "rot", "trans", "root_uv", "depth", "uvd", "xyz_int"]
+INIT_POSE = tuple(JC.initial_joint_vector("mean", "panda").tolist())
+
+
+def rel_err(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-6))
+
+
+def random_jax_variables(model, args, seed):
+    """Variables of `model` with numpy-random values: He-normal kernels,
+    small biases, BN scale near 0.5 (keeps activations O(1)), random BN
+    running mean and var."""
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(0)},
+        *args, train=False))
+    rng = np.random.RandomState(seed)
+
+    def fill(path, s):
+        name = path[-1].key
+        if name == "var":
+            v = 0.5 + rng.rand(*s.shape)
+        elif name == "mean":
+            v = 0.1 * rng.randn(*s.shape)
+        elif name == "scale":
+            v = 0.5 + 0.05 * rng.randn(*s.shape)
+        elif name == "bias":
+            v = 0.01 * rng.randn(*s.shape)
+        else:
+            v = rng.randn(*s.shape) * np.sqrt(2.0 / np.prod(s.shape[:-1]))
+        return np.asarray(v, np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def _inputs(rng, B, S):
+    x_reg = rng.rand(B, S, S, 3).astype(np.float32)
+    x_root = rng.rand(B, S, S, 3).astype(np.float32)
+    k_value = rng.uniform(1000, 3000, B).astype(np.float32)
+    K = np.tile(np.asarray([[300.0, 0, S / 2], [0, 310.0, S / 2], [0, 0, 1]],
+                           np.float32)[None], (B, 1, 1))
+    K[:, 0, 2] += rng.uniform(-3, 3, B)
+    return x_reg, x_root, k_value, K
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    S, D, B = 64, 8, 2
+    jmodel = JaxFullNet(image_size=S, depth_dim=D, p_dropout=0.0,
+                        init_pose=INIT_POSE)
+    x_reg, x_root, k_value, K = _inputs(np.random.RandomState(808), B, S)
+    variables = random_jax_variables(jmodel, (x_reg, x_root, k_value, K), 1)
+    ref = jax.jit(lambda v, *a: jmodel.apply(v, *a, train=False))(
+        variables, x_reg, x_root, k_value, K)
+    model = FullNet(image_size=S, depth_dim=D, p_dropout=0.0,
+                    init_pose=INIT_POSE)
+    model.load_state_dict(fullnet_state_dict_from_jax(
+        variables["params"], variables["batch_stats"], "resnet50", "hrnet32"))
+    model.eval()
+    with torch.no_grad():
+        out = model(_nchw(x_reg), _nchw(x_root), torch.from_numpy(k_value),
+                    torch.from_numpy(K))
+    return ({k: np.asarray(v) for k, v in ref.items()},
+            {k: v.numpy() for k, v in out.items()})
+
+
+@pytest.mark.parametrize("key", OUTPUT_KEYS)
+def test_flagship_fullnet_matches_jax(flagship, key):
+    ref, out = flagship
+    assert out[key].shape == ref[key].shape
+    assert np.isfinite(out[key]).all()
+    assert rel_err(out[key], ref[key]) <= REL_TOL, key
+
+
+def test_hrnet_reg_resnet_rootnet_fullnet_matches_jax(rng):
+    """The other backbone wiring: hrnet32 as the reg backbone (heatmap and
+    feature heads from one HRNet) and a resnet rootnet (GAP feature)."""
+    S, D, B = 64, 4, 2
+    kw = dict(backbone_name="hrnet32", rootnet_backbone_name="resnet18",
+              image_size=S, depth_dim=D, p_dropout=0.0, init_pose=INIT_POSE)
+    jmodel = JaxFullNet(**kw)
+    args = _inputs(rng, B, S)
+    variables = random_jax_variables(jmodel, args, 2)
+    ref = jax.jit(lambda v, *a: jmodel.apply(v, *a, train=False))(
+        variables, *args)
+    model = FullNet(**kw)
+    model.load_state_dict(fullnet_state_dict_from_jax(
+        variables["params"], variables["batch_stats"], "hrnet32",
+        "resnet18"))
+    model.eval()
+    x_reg, x_root, k_value, K = args
+    with torch.no_grad():
+        out = model(_nchw(x_reg), _nchw(x_root), torch.from_numpy(k_value),
+                    torch.from_numpy(K))
+    for key in OUTPUT_KEYS:
+        assert rel_err(out[key].numpy(), ref[key]) <= REL_TOL, key
+
+
+@pytest.mark.parametrize("backbone,rootnet", [("resnet50", "hrnet32"),
+                                              ("resnet18", "resnet34"),
+                                              ("hrnet32", "resnet50")])
+def test_state_dict_round_trips_through_jax_layout(backbone, rootnet):
+    """port state_dict -> convert_fullnet_reference_checkpoint (the JAX
+    package's torch -> flax map) -> fullnet_state_dict_from_jax gives back
+    every key, bit for bit."""
+    model = FullNet(backbone_name=backbone, rootnet_backbone_name=rootnet,
+                    image_size=64, depth_dim=8, init_pose=INIT_POSE)
+    sd = {k: v.numpy() for k, v in random_state_dict(model, 3).items()
+          if not k.endswith("num_batches_tracked")}
+    tb = convert_fullnet_reference_checkpoint(sd, backbone, rootnet)
+    back = fullnet_state_dict_from_jax(tb.params, tb.batch_stats, backbone,
+                                       rootnet)
+    assert sorted(back) == sorted(sd)
+    for k, v in sd.items():
+        np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
+    model.load_state_dict(back)      # strict: every module key is present
+
+
+def test_from_jax_rejects_leaves_without_a_torch_key():
+    model = FullNet(backbone_name="resnet18", rootnet_backbone_name="resnet18",
+                    image_size=64, depth_dim=8, init_pose=INIT_POSE)
+    sd = {k: v.numpy() for k, v in random_state_dict(model, 0).items()}
+    tb = convert_fullnet_reference_checkpoint(sd, "resnet18", "resnet18")
+    tb.params["stray_head"] = {"kernel": np.zeros((2, 2), np.float32)}
+    with pytest.raises(ValueError, match="stray_head"):
+        fullnet_state_dict_from_jax(tb.params, tb.batch_stats, "resnet18",
+                                    "resnet18")
+
+
+@pytest.mark.parametrize("flag", ["multi_kp", "add_fc", "reg_joint_map",
+                                  "direct_reg_rot", "rot_iterative_matmul"])
+def test_unported_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FullNet(init_pose=INIT_POSE, **{flag: True})
+
+
+def test_bf16_forward_keeps_heads_and_decoding_f32(rng):
+    model = FullNet(backbone_name="resnet18", rootnet_backbone_name="resnet18",
+                    image_size=64, depth_dim=8, init_pose=INIT_POSE,
+                    dtype=torch.bfloat16)
+    model.load_state_dict(random_state_dict(model, 0))
+    model.eval()
+    seen = {}
+
+    def record(name):
+        def hook(_module, _inputs, output):
+            seen[name] = output.dtype
+        return hook
+
+    model.final_layer.register_forward_hook(record("heatmap"))
+    model.depth_layer.register_forward_hook(record("depth_layer"))
+    x_reg, x_root, k_value, K = _inputs(rng, 2, 64)
+    with torch.no_grad():
+        out = model(_nchw(x_reg), _nchw(x_root), torch.from_numpy(k_value),
+                    torch.from_numpy(K))
+    assert seen == {"heatmap": torch.bfloat16, "depth_layer": torch.float32}
+    for key in OUTPUT_KEYS:
+        assert out[key].dtype == torch.float32, key
+        assert torch.isfinite(out[key]).all(), key

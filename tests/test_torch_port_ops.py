@@ -1,0 +1,228 @@
+"""Port ops against the JAX package: rotations, transforms, soft-argmax.
+
+Inputs come from numpy seeds and go through the JAX function and its
+horopose_tpu_torch counterpart on the CPU. The JAX soft-argmax runs both as
+its plain jnp version and as the Pallas kernel in interpret mode, as
+tests/test_integral_pallas.py runs it.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from horopose_tpu.ops import integral as JI
+from horopose_tpu.ops import rotations as JR
+from horopose_tpu.ops import transforms as JT
+from horopose_tpu.ops.integral_pallas import soft_argmax_3d_pallas
+from horopose_tpu_torch import cuda_build
+from horopose_tpu_torch.ops import integral as TI
+from horopose_tpu_torch.ops import integral_cuda
+from horopose_tpu_torch.ops import rotations as TR
+from horopose_tpu_torch.ops import transforms as TT
+
+# f32 geometry: 1e-6 absolute; projections, whose outputs are pixels
+# (hundreds, where one f32 ulp is ~3e-5), also get a 1e-6 relative term
+ATOL = 1e-6
+PIXEL_RTOL = 1e-6
+# soft-argmax: f32 sums over up to 2048 terms in different orders
+SAM_ATOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _rotmats(rng, n):
+    a = rng.randn(n, 3, 3)
+    q, r = np.linalg.qr(a)
+    q = q * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[:, None, :]
+    q[np.linalg.det(q) < 0, :, 0] *= -1
+    return q.astype(np.float32)
+
+
+def _K(rng, n):
+    fx = rng.uniform(200, 600, n)
+    fy = rng.uniform(200, 600, n)
+    cx = rng.uniform(20, 60, n)
+    cy = rng.uniform(20, 60, n)
+    return np.stack([np.stack([fx, 0 * fx, cx], -1),
+                     np.stack([0 * fx, fy, cy], -1),
+                     np.stack([0 * fx, 0 * fx, 1 + 0 * fx], -1)],
+                    -2).astype(np.float32)
+
+
+ROTATION_CASES = {
+    "rot6d_to_rotmat": (lambda rng: (rng.randn(4, 5, 6),),
+                        JR.rot6d_to_rotmat, TR.rot6d_to_rotmat),
+    "rotmat_to_rot6d": (lambda rng: (_rotmats(rng, 8),),
+                        JR.rotmat_to_rot6d, TR.rotmat_to_rot6d),
+    "quat_to_rotmat": (lambda rng: (rng.randn(3, 4),),
+                       JR.quat_to_rotmat, TR.quat_to_rotmat),
+    "rot_to_rotmat_6": (lambda rng: (rng.randn(6, 6),),
+                        JR.rot_to_rotmat, TR.rot_to_rotmat),
+    "rot_to_rotmat_4": (lambda rng: (rng.randn(6, 4),),
+                        JR.rot_to_rotmat, TR.rot_to_rotmat),
+    "rotmat_to_rot_6": (lambda rng: (_rotmats(rng, 5),),
+                        lambda m: JR.rotmat_to_rot(m, 6),
+                        lambda m: TR.rotmat_to_rot(m, 6)),
+    "rotmat_to_rot_9": (lambda rng: (_rotmats(rng, 5),),
+                        lambda m: JR.rotmat_to_rot(m, 9),
+                        lambda m: TR.rotmat_to_rot(m, 9)),
+    "make_T": (lambda rng: (_rotmats(rng, 6), rng.randn(6, 3)),
+               JR.make_T, TR.make_T),
+    "make_T_broadcast": (lambda rng: (_rotmats(rng, 1)[0], rng.randn(4, 3)),
+                         JR.make_T, TR.make_T),
+    "invert_T": (lambda rng: (np.asarray(JR.make_T(_rotmats(rng, 6),
+                                                   rng.randn(6, 3))),),
+                 JR.invert_T, TR.invert_T),
+}
+
+TRANSFORM_CASES = {
+    "make_K": (lambda rng: tuple(rng.uniform(10, 500, (4, 3))
+                                 for _ in range(4)),
+               JT.make_K, TT.make_K),
+    "invert_K": (lambda rng: (_K(rng, 5),), JT.invert_K, TT.invert_K),
+    "project_points": (lambda rng: (_K(rng, 3), rng.randn(3, 7, 3) * 0.3
+                                    + np.array([0, 0, 1.5])),
+                       JT.project_points, TT.project_points),
+    "project_points_degenerate": (
+        lambda rng: (_K(rng, 2), np.zeros((2, 4, 3))),
+        JT.project_points, TT.project_points),
+    "uvd_to_xyz": (lambda rng: (rng.uniform(-0.5, 0.5, (3, 7, 3)), 64.0,
+                                np.asarray(JT.invert_K(_K(rng, 3))),
+                                rng.uniform(0.5, 2.0, (3, 3)), 1.3),
+                   JT.uvd_to_xyz, TT.uvd_to_xyz),
+    "uvz_to_xyz_singlepoint": (lambda rng: (rng.uniform(0, 64, (4, 2)),
+                                            rng.uniform(0.5, 2.0, (4, 1)),
+                                            _K(rng, 4)),
+                               JT.uvz_to_xyz_singlepoint,
+                               TT.uvz_to_xyz_singlepoint),
+    "k_value_from_bbox": (lambda rng: (np.sort(rng.uniform(0, 640, (5, 4)),
+                                               axis=-1),
+                                       rng.uniform(300, 600, 5),
+                                       rng.uniform(300, 600, 5)),
+                          JT.k_value_from_bbox, TT.k_value_from_bbox),
+}
+
+
+def _f32(args):
+    return tuple(np.asarray(a, np.float32) if isinstance(a, np.ndarray)
+                 else a for a in args)
+
+
+@pytest.mark.parametrize("name", sorted(ROTATION_CASES) +
+                         sorted(TRANSFORM_CASES))
+def test_geometry_matches_jax(name, rng):
+    make, jax_fn, torch_fn = {**ROTATION_CASES, **TRANSFORM_CASES}[name]
+    args = _f32(make(rng))
+    ref = np.asarray(jax_fn(*[jnp.asarray(a) if isinstance(a, np.ndarray)
+                              else a for a in args]))
+    out = torch_fn(*[_t(a) if isinstance(a, np.ndarray) else a
+                     for a in args]).numpy()
+    assert out.shape == ref.shape and out.dtype == np.float32
+    rtol = PIXEL_RTOL if name.startswith("project_points") else 0.0
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=rtol)
+
+
+def test_unported_rotation_dims_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TR.rot_to_rotmat(torch.zeros(2, 9))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TR.rotmat_to_rot(torch.eye(3)[None], 4)
+    with pytest.raises(ValueError):
+        TR.rot_to_rotmat(torch.zeros(2, 5))
+
+
+# the shapes of tests/test_integral_pallas.py, plus D != H != W
+SAM_SHAPES = [(2, 3, 4, 8, 8), (1, 2, 4, 8, 8), (2, 2, 4, 4, 8),
+              (2, 7, 8, 16, 16), (2, 3, 5, 7, 9)]
+
+
+@pytest.mark.parametrize("shape", SAM_SHAPES)
+def test_soft_argmax_3d_matches_jax_and_pallas(shape, rng):
+    B, K, D, H, W = shape
+    logits = (rng.randn(B, K, D * H * W) * 3).astype(np.float32)
+    ref = np.asarray(JI.soft_argmax_3d(jnp.asarray(logits), D, H, W))
+    pallas = np.asarray(soft_argmax_3d_pallas(jnp.asarray(logits), D, H, W))
+    out = TI.soft_argmax_3d(_t(logits), D, H, W).numpy()
+    np.testing.assert_allclose(out, ref, atol=SAM_ATOL)
+    np.testing.assert_allclose(out, pallas, atol=SAM_ATOL)
+    # the kernel's CPU entry returns the same uvd and E = (uvd + 0.5) * dim
+    uvd, e = integral_cuda.soft_argmax_3d_fwd(
+        _t(logits).reshape(B * K, D, H, W))
+    np.testing.assert_allclose(uvd.numpy().reshape(B, K, 3), pallas,
+                               atol=SAM_ATOL)
+    dims = np.array([W, H, D], np.float32)
+    np.testing.assert_allclose(e.numpy(), (uvd.numpy() + 0.5) * dims,
+                               atol=SAM_ATOL * max(dims))
+
+
+@pytest.mark.parametrize("use_kernel", [None, False])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_heatmap_integral_pose_fixroot_matches_jax(use_kernel, use_pallas,
+                                                   rng):
+    B, K, D, S = 2, 7, 8, 16
+    out = (rng.randn(B, K * D, S, S) * 2).astype(np.float32)
+    Kmat = _K(rng, B)
+    root = np.concatenate([np.zeros((B, 2)), rng.uniform(0.5, 2, (B, 1))],
+                          -1).astype(np.float32)
+    kw = dict(num_joints=K, depth_dim=D, height_dim=S, width_dim=S,
+              image_size=64.0, bbox_3d_shape=(1300, 1300, 1300), rootid=3,
+              fixroot=True)
+    ref_uvd, ref_xyz = JI.heatmap_integral_pose(
+        jnp.asarray(out), K=jnp.asarray(Kmat), root_trans=jnp.asarray(root),
+        use_pallas=use_pallas, **kw)
+    uvd, xyz = TI.heatmap_integral_pose(_t(out), K=_t(Kmat),
+                                        root_trans=_t(root),
+                                        use_kernel=use_kernel, **kw)
+    assert float(uvd[:, 3, 2].abs().max()) == 0.0
+    np.testing.assert_allclose(uvd.numpy(), np.asarray(ref_uvd),
+                               atol=SAM_ATOL)
+    np.testing.assert_allclose(xyz.numpy(), np.asarray(ref_xyz),
+                               atol=SAM_ATOL)
+
+
+def test_heatmap_integral_joint_matches_jax(rng):
+    B, dof, R = 3, 8, 32
+    out = (rng.randn(B, dof, R) * 2).astype(np.float32)
+    bounds = np.sort(rng.uniform(-3, 3, (dof, 2)), -1).astype(np.float32)
+    ref = JI.heatmap_integral_joint(jnp.asarray(out), dof=dof,
+                                    joint_bounds=jnp.asarray(bounds))
+    got = TI.heatmap_integral_joint(_t(out), dof=dof,
+                                    joint_bounds=_t(bounds))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=SAM_ATOL)
+
+
+def test_bf16_logits_decode_as_their_f32_values(rng):
+    x = torch.from_numpy(rng.randn(6, 4, 8, 8).astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    uvd_b, e_b = integral_cuda.soft_argmax_3d_fwd(xb)
+    uvd_f, e_f = TI.soft_argmax_3d_fwd_plain(xb.float())
+    assert uvd_b.dtype == torch.float32
+    torch.testing.assert_close(uvd_b, uvd_f, rtol=0, atol=0)
+    torch.testing.assert_close(e_b, e_f, rtol=0, atol=0)
+
+
+def test_cpu_dispatch_never_touches_cuda_library(monkeypatch, rng):
+    def no_library(*_a, **_k):
+        raise AssertionError("CPU path reached the CUDA library")
+
+    monkeypatch.setattr(cuda_build, "load", no_library)
+    monkeypatch.setattr(cuda_build, "build", no_library)
+    monkeypatch.setattr(integral_cuda.soft_argmax_3d_fwd, "launches", 0)
+    B, K, D, S = 2, 3, 4, 8
+    out = _t(rng.randn(B, K * D, S, S).astype(np.float32))
+    kw = dict(num_joints=K, depth_dim=D, height_dim=S, width_dim=S,
+              image_size=32.0, bbox_3d_shape=(1300, 1300, 1300),
+              K=torch.eye(3).expand(B, 3, 3), root_trans=torch.ones(B, 3))
+    for use_kernel in (None, True, False):
+        TI.heatmap_integral_pose(out, use_kernel=use_kernel, **kw)
+    integral_cuda.soft_argmax_3d_fwd(out.reshape(B * K, D, S, S))
+    assert integral_cuda.soft_argmax_3d_fwd.launches == 0
+
+
+def test_kernel_wrapper_rejects_devices_without_a_kernel():
+    with pytest.raises(ValueError, match="no kernel"):
+        integral_cuda.soft_argmax_3d_fwd(torch.empty(2, 4, 4, 4,
+                                                     device="meta"))
