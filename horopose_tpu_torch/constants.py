@@ -1,7 +1,7 @@
 """Robot description tables: keypoints, joints, initial joint angles.
 
-A copy of the values in `horopose_tpu/constants.py` that the serving path
-needs (facts about the DREAM benchmark robots).
+A copy of the values in `horopose_tpu/constants.py` that the serving and
+training paths need (facts about the DREAM benchmark robots).
 """
 
 from __future__ import annotations
@@ -61,6 +61,18 @@ JOINT_NAMES = {
 
 DOF = {"panda": 8, "kuka": 7, "baxter": 15, "owi535": 4}
 NUM_KEYPOINTS = {k: len(v) for k, v in KEYPOINT_NAMES.items()}
+
+# the keypoint whose visibility decides each joint's validity, per joint of
+# JOINT_NAMES (the joint-valid mask of the training ground truth)
+JOINT_TO_KP = {
+    "panda": [1, 1, 2, 3, 4, 4, 5, 6],
+    "kuka": [1, 2, 3, 4, 5, 6, 7],
+    "baxter": list(range(1, 16)),
+    "owi535": [0, 1, 2, 3],
+}
+
+# global training seed
+GLOBAL_SEED = 808
 
 # initial joint configurations: 'zero' and the dataset 'mean'
 INITIAL_JOINT_ANGLE = {

@@ -1,9 +1,11 @@
 """Robot facade: keypoints from FK and root reframing.
 
-Port of `horopose_tpu/kinematics/robot.py` for the serving path: keypoint
-links and offsets (with the Baxter joint-origin keypoints), and
+Port of `horopose_tpu/kinematics/robot.py` for the serving and training
+paths: keypoint links and offsets (with the Baxter joint-origin keypoints),
 `get_keypoints_root`, the FK lift that places keypoint-link `root` in the
-camera. All methods accept arbitrary leading batch dims.
+camera, and `get_rotation_at_specific_root`, which the ground truth of a
+non-base reference keypoint needs. All methods accept arbitrary leading
+batch dims.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from horopose_tpu_torch import constants as C
 from horopose_tpu_torch.kinematics.fk import KinematicPlan
 from horopose_tpu_torch.kinematics.urdf import parse_urdf
-from horopose_tpu_torch.ops.rotations import invert_T, make_T, rot_to_rotmat
+from horopose_tpu_torch.ops.rotations import (invert_T, make_T, rot_to_rotmat,
+                                              rotmat_to_rot)
 
 _DESCRIPTIONS = os.path.join(os.path.dirname(__file__), "descriptions")
 
@@ -100,3 +103,14 @@ class Robot:
         TWL = self.get_TWL(cfg)
         root_inv = invert_T(TWL[..., root:root + 1, :, :])
         return self._keypoints_from_TWL(base2cam @ (root_inv @ TWL))
+
+    def get_rotation_at_specific_root(self, cfg: torch.Tensor,
+                                      rot: torch.Tensor, trans: torch.Tensor,
+                                      root: int = 0) -> torch.Tensor:
+        """Rotation (same representation as `rot`) of keypoint-link `root`
+        in the camera frame, given base-to-camera (rot, trans)."""
+        if root == 0:
+            return rot
+        base2cam = make_T(rot_to_rotmat(rot), trans)[..., None, :, :]
+        TWL = base2cam @ self.get_TWL(cfg)
+        return rotmat_to_rot(TWL[..., root, :3, :3], rot.shape[-1])

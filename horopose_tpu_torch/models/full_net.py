@@ -11,6 +11,12 @@ depth, K^-1). Module names are the reference checkpoints' keys, so
 
 dtype bfloat16 runs the conv stacks under autocast; `depth_layer`, the
 decoding and the MLP heads stay float32, as the JAX model's Dense layers do.
+
+Train mode (`model.train()`): BatchNorm normalises with the batch
+statistics and updates its running statistics in place (momentum 0.1, the
+unbiased variance, as the JAX package's BatchNorm), and the heads' dropout
+draws its masks from the `torch.Generator` the caller passes, never from
+the global generator, as the JAX step takes its dropout key.
 """
 
 from __future__ import annotations
@@ -125,7 +131,7 @@ class FullNet(nn.Module):
         self.fc_rot_1 = nn.Linear(reg_feat + rotation_dim, 1024)
         self.fc_rot_2 = nn.Linear(1024, 1024)
         self.decrot = nn.Linear(1024, rotation_dim)
-        self.drop = nn.Dropout(p_dropout)
+        self.p_dropout = float(p_dropout)
 
     def _backbones(self, x_reg, x_root):
         """Conv stacks: -> (root feature (B, C), heatmap logits
@@ -142,9 +148,25 @@ class FullNet(nn.Module):
             hm, xf = self.reg_backbone(x_reg)
         return img_feat, hm, xf
 
-    def forward(self, x_reg, x_root, k_value, K):
+    def _drop(self, x: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Inverted dropout in train mode: keep where U[0, 1) >= p, scale
+        by 1 / (1 - p); the identity in eval mode."""
+        p = self.p_dropout
+        if not self.training or p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("FullNet in train mode with dropout needs the "
+                             "step's torch.Generator (forward(..., "
+                             "generator=g))")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+    def forward(self, x_reg, x_root, k_value, K,
+                generator: Optional[torch.Generator] = None):
         """x_reg, x_root: (B, 3, S, S) float crops in [0, 1]; k_value (B,);
-        K (B, 3, 3) intrinsics of the reg crop.
+        K (B, 3, 3) intrinsics of the reg crop; generator: the dropout masks'
+        source, needed in train mode when p_dropout > 0.
 
         Returns a dict: pose (B, dof), rot (B, rotation_dim), trans (B, 3),
         root_uv (B, 2) pixels, depth (B, 1) metres, uvd (B, K, 3),
@@ -180,14 +202,14 @@ class FullNet(nn.Module):
         pred_pose = self.init_pose.expand(B, self.dof)
         for _ in range(self.n_iter):
             xc = torch.cat([xf, pred_pose], dim=1)
-            xc = self.drop(self.fc_pose_1(xc))
-            xc = self.drop(self.fc_pose_2(xc))
+            xc = self._drop(self.fc_pose_1(xc), generator)
+            xc = self._drop(self.fc_pose_2(xc), generator)
             pred_pose = self.decpose(xc) + pred_pose
         pred_rot = self.init_rot.expand(B, self.rotation_dim)
         for _ in range(self.n_iter):
             xc = torch.cat([xf, pred_rot], dim=1)
-            xc = self.drop(self.fc_rot_1(xc))
-            xc = self.drop(self.fc_rot_2(xc))
+            xc = self._drop(self.fc_rot_1(xc), generator)
+            xc = self._drop(self.fc_rot_2(xc), generator)
             pred_rot = self.decrot(xc) + pred_rot
 
         return dict(pose=pred_pose, rot=pred_rot, trans=pred_trans,

@@ -1,6 +1,6 @@
 """Rotation representation conversions, batched over leading dims.
 
-Port of the serving-path subset of `horopose_tpu/ops/rotations.py`.
+Port of the serving and training subset of `horopose_tpu/ops/rotations.py`.
 """
 
 from __future__ import annotations
@@ -42,6 +42,13 @@ def rot6d_to_rotmat(r6: torch.Tensor) -> torch.Tensor:
 def rotmat_to_rot6d(matrix: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> 6D representation: first two rows."""
     return matrix[..., :2, :].reshape(*matrix.shape[:-2], 6)
+
+
+def geodesic_distance(m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """Angle (radians, in [0, pi]) between rotation matrices, batched."""
+    m = m1 @ m2.transpose(-1, -2)
+    cos = (m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2] - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))
 
 
 def make_T(rotmat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:

@@ -2,14 +2,16 @@
 
 Port of `build_fullnet`, `make_robot` and `crop_sizes` from
 `horopose_tpu/pipelines/common.py`. The dataclass replaces the YAML config;
-its defaults are the panda flagship (`configs/panda/full.yaml`).
+its defaults are the panda flagship (`configs/panda/full.yaml`), model and
+stage-2 training alike. A key that file leaves out takes the JAX package's
+default (`horopose_tpu/config.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +35,44 @@ class FullNetConfig:
     n_iter: int = 4
     p_dropout: float = 0.5
     rotation_dim: int = 6
+
+    # ---- stage-2 training ----
+    batch_size: int = 64
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    use_schedule: bool = True
+    schedule_type: str = "exponential"
+    n_epochs_warmup: int = 0
+    start_decay: float = 45
+    end_decay: float = 100
+    final_decay: float = 0.01
+    exponent: float = 0.95
+    step_decay: float = 0.1
+    step: int = 5
+    clip_gradient: float = 5.0
+    # ground truth
+    use_extended_bbox: bool = True
+    use_origin_bbox: bool = False
+    use_joint_valid_mask: bool = False
+    known_joint: bool = False
+    fix_mask: bool = False
+    joint_individual_weights: Optional[Sequence[float]] = None
+    # the 10 losses
+    pose_loss_func: str = "mse"
+    rot_loss_func: str = "mse"
+    trans_loss_func: str = "l2norm"
+    uv_loss_func: str = "l2norm"
+    depth_loss_func: str = "l1"
+    pose_loss_weight: float = 1.0
+    rot_loss_weight: float = 1.0
+    trans_loss_weight: float = 1.0
+    uv_loss_weight: float = 1.0
+    depth_loss_weight: float = 10.0
+    kp2d_loss_weight: float = 10.0
+    kp3d_loss_weight: float = 10.0
+    kp2d_int_loss_weight: float = 10.0
+    kp3d_int_loss_weight: float = 10.0
+    align_3d_loss_weight: float = 0.0
 
 
 def crop_sizes(cfg: FullNetConfig) -> Tuple[int, int]:

@@ -1,5 +1,6 @@
-"""Port kinematics against the JAX package: FK plan and the FK lift
-`Robot.get_keypoints_root`, on all three built-in URDFs."""
+"""Port kinematics against the JAX package: FK plan, the FK lift
+`Robot.get_keypoints_root` and `Robot.get_rotation_at_specific_root`, on
+all three built-in URDFs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +43,22 @@ def test_get_keypoints_root_matches_jax(robots, root, rng):
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
 
 
+@pytest.mark.parametrize("root", [0, 3])
+def test_get_rotation_at_specific_root_matches_jax(robots, root, rng):
+    jrobot, trobot = robots
+    B = 5
+    cfg = _cfg(rng, trobot.robot_type, B)
+    rot = rng.randn(B, 6).astype(np.float32)
+    trans = (rng.randn(B, 3) * 0.2 + [0, 0, 1.5]).astype(np.float32)
+    ref = np.asarray(jrobot.get_rotation_at_specific_root(
+        jnp.asarray(cfg), jnp.asarray(rot), jnp.asarray(trans), root=root))
+    out = trobot.get_rotation_at_specific_root(
+        torch.from_numpy(cfg), torch.from_numpy(rot),
+        torch.from_numpy(trans), root=root)
+    assert out.shape == (B, 6)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
+
+
 def test_link_poses_match_jax(robots, rng):
     jrobot, trobot = robots
     assert trobot.plan.link_names == jrobot.plan.link_names
@@ -56,7 +73,7 @@ def test_link_poses_match_jax(robots, rng):
 def test_constants_are_copies():
     for name in ("DOF", "NUM_KEYPOINTS", "KEYPOINT_NAMES", "LINK_NAMES",
                  "JOINT_NAMES", "BAXTER_KEYPOINT_JOINTS",
-                 "INITIAL_JOINT_ANGLE"):
+                 "INITIAL_JOINT_ANGLE", "JOINT_TO_KP", "GLOBAL_SEED"):
         assert getattr(TC, name) == getattr(JC, name), name
     for robot in ROBOTS:
         np.testing.assert_array_equal(

@@ -187,3 +187,43 @@ def test_bf16_forward_keeps_heads_and_decoding_f32(rng):
     for key in OUTPUT_KEYS:
         assert out[key].dtype == torch.float32, key
         assert torch.isfinite(out[key]).all(), key
+
+
+def test_train_mode_dropout_draws_from_the_step_generator(rng):
+    """Train mode: batch-statistics BatchNorm and dropout masks from the
+    generator the step passes (the same seed gives the same masks, the
+    global generator is not read); eval mode is deterministic and takes
+    no generator."""
+    model = FullNet(backbone_name="resnet18", rootnet_backbone_name="resnet18",
+                    image_size=64, depth_dim=8, init_pose=INIT_POSE,
+                    p_dropout=0.5)
+    model.load_state_dict(random_state_dict(model, 0))
+    args = [torch.from_numpy(a) if a.ndim < 4 else _nchw(a)
+            for a in _inputs(rng, 2, 64)]
+    model.train()
+    with torch.no_grad():
+        outs = []
+        for seed in (1, 1, 2):
+            torch.manual_seed(seed + 100)       # the global generator moves
+            outs.append(model(*args,
+                              generator=torch.Generator().manual_seed(seed)))
+        with pytest.raises(ValueError, match="generator"):
+            model(*args)
+        model.eval()
+        ev = [model(*args)["pose"] for _ in range(2)]
+    for key in ("pose", "rot"):
+        assert torch.equal(outs[0][key], outs[1][key]), key
+        assert not torch.equal(outs[0][key], outs[2][key]), key
+    assert torch.equal(ev[0], ev[1])
+    assert not torch.equal(ev[0], outs[0]["pose"])
+
+
+def test_dropout_masks_keep_one_minus_p_and_rescale():
+    model = FullNet(backbone_name="resnet18", rootnet_backbone_name="resnet18",
+                    image_size=64, depth_dim=8, init_pose=INIT_POSE,
+                    p_dropout=0.3).train()
+    x = torch.ones(200, 1000)
+    y = model._drop(x, torch.Generator().manual_seed(0))
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - 0.7) < 0.01
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / 0.7))

@@ -69,6 +69,8 @@ ROTATION_CASES = {
     "rotmat_to_rot_9": (lambda rng: (_rotmats(rng, 5),),
                         lambda m: JR.rotmat_to_rot(m, 9),
                         lambda m: TR.rotmat_to_rot(m, 9)),
+    "geodesic_distance": (lambda rng: (_rotmats(rng, 6), _rotmats(rng, 6)),
+                          JR.geodesic_distance, TR.geodesic_distance),
     "make_T": (lambda rng: (_rotmats(rng, 6), rng.randn(6, 3)),
                JR.make_T, TR.make_T),
     "make_T_broadcast": (lambda rng: (_rotmats(rng, 1)[0], rng.randn(4, 3)),
@@ -149,7 +151,7 @@ def test_soft_argmax_3d_matches_jax_and_pallas(shape, rng):
     np.testing.assert_allclose(out, ref, atol=SAM_ATOL)
     np.testing.assert_allclose(out, pallas, atol=SAM_ATOL)
     # the kernel's CPU entry returns the same uvd and E = (uvd + 0.5) * dim
-    uvd, e = integral_cuda.soft_argmax_3d_fwd(
+    uvd, e, _ = integral_cuda.soft_argmax_3d_fwd(
         _t(logits).reshape(B * K, D, H, W))
     np.testing.assert_allclose(uvd.numpy().reshape(B, K, 3), pallas,
                                atol=SAM_ATOL)
@@ -197,11 +199,12 @@ def test_heatmap_integral_joint_matches_jax(rng):
 def test_bf16_logits_decode_as_their_f32_values(rng):
     x = torch.from_numpy(rng.randn(6, 4, 8, 8).astype(np.float32))
     xb = x.to(torch.bfloat16)
-    uvd_b, e_b = integral_cuda.soft_argmax_3d_fwd(xb)
-    uvd_f, e_f = TI.soft_argmax_3d_fwd_plain(xb.float())
-    assert uvd_b.dtype == torch.float32
+    uvd_b, e_b, st_b = integral_cuda.soft_argmax_3d_fwd(xb)
+    uvd_f, e_f, st_f = TI.soft_argmax_3d_fwd_plain(xb.float())
+    assert uvd_b.dtype == torch.float32 and st_b.dtype == torch.float32
     torch.testing.assert_close(uvd_b, uvd_f, rtol=0, atol=0)
     torch.testing.assert_close(e_b, e_f, rtol=0, atol=0)
+    torch.testing.assert_close(st_b, st_f, rtol=0, atol=0)
 
 
 def test_cpu_dispatch_never_touches_cuda_library(monkeypatch, rng):
@@ -211,18 +214,133 @@ def test_cpu_dispatch_never_touches_cuda_library(monkeypatch, rng):
     monkeypatch.setattr(cuda_build, "load", no_library)
     monkeypatch.setattr(cuda_build, "build", no_library)
     monkeypatch.setattr(integral_cuda.soft_argmax_3d_fwd, "launches", 0)
+    monkeypatch.setattr(integral_cuda.soft_argmax_3d_bwd, "launches", 0)
     B, K, D, S = 2, 3, 4, 8
-    out = _t(rng.randn(B, K * D, S, S).astype(np.float32))
+    out = _t(rng.randn(B, K * D, S, S).astype(np.float32)).requires_grad_()
     kw = dict(num_joints=K, depth_dim=D, height_dim=S, width_dim=S,
               image_size=32.0, bbox_3d_shape=(1300, 1300, 1300),
               K=torch.eye(3).expand(B, 3, 3), root_trans=torch.ones(B, 3))
     for use_kernel in (None, True, False):
-        TI.heatmap_integral_pose(out, use_kernel=use_kernel, **kw)
-    integral_cuda.soft_argmax_3d_fwd(out.reshape(B * K, D, S, S))
+        uvd, xyz = TI.heatmap_integral_pose(out, use_kernel=use_kernel, **kw)
+        (uvd.sum() + xyz.sum()).backward()
+    x = out.detach().reshape(B * K, D, S, S)
+    _, e, stats = integral_cuda.soft_argmax_3d_fwd(x)
+    integral_cuda.soft_argmax_3d_bwd(x, e, stats, torch.ones(B * K, 3))
     assert integral_cuda.soft_argmax_3d_fwd.launches == 0
+    assert integral_cuda.soft_argmax_3d_bwd.launches == 0
 
 
 def test_kernel_wrapper_rejects_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         integral_cuda.soft_argmax_3d_fwd(torch.empty(2, 4, 4, 4,
                                                      device="meta"))
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        integral_cuda.soft_argmax_3d_bwd(
+            torch.empty(2, 4, 4, 4, **meta), torch.empty(2, 3, **meta),
+            torch.empty(2, 2, **meta), torch.empty(2, 3, **meta))
+
+
+# ---- the backward: closed form, autograd Function, JAX gradients ----
+
+# f32 gradients, as tests/test_integral_pallas.py holds the Pallas backward
+GRAD_ATOL = 1e-6
+GRAD_SHAPES = [(1, 2, 4, 8, 8), (2, 2, 4, 4, 8), (2, 3, 5, 7, 9)]
+
+
+def _jax_grads(logits, w, D, H, W):
+    """jax.grad of sum(uvd * w) through the plain jnp soft-argmax and
+    through the Pallas kernel (interpret mode on the CPU)."""
+    import jax
+
+    def loss(fn):
+        return lambda l: jnp.sum(fn(l, D, H, W) * w)
+
+    return [np.asarray(jax.grad(loss(fn))(jnp.asarray(logits)))
+            for fn in (JI.soft_argmax_3d, soft_argmax_3d_pallas)]
+
+
+@pytest.mark.parametrize("shape", GRAD_SHAPES)
+def test_soft_argmax_backward_matches_jax_grad(shape, rng):
+    B, K, D, H, W = shape
+    logits = (rng.randn(B, K, D * H * W) * 3).astype(np.float32)
+    w = rng.randn(B, K, 3).astype(np.float32)
+    ref_plain, ref_pallas = _jax_grads(logits, w, D, H, W)
+    x = _t(logits).reshape(B * K, D, H, W)
+    g = _t(w).reshape(B * K, 3)
+    _, e, stats = TI.soft_argmax_3d_fwd_plain(x)
+    closed = TI.soft_argmax_3d_bwd_plain(x, e, stats, g).reshape(logits.shape)
+    xf = x.clone().requires_grad_()
+    (TI.SoftArgmax3d.apply(xf) * g).sum().backward()
+    xa = x.clone().requires_grad_()
+    (TI.soft_argmax_3d_fwd_plain(xa)[0] * g).sum().backward()
+    for got in (closed, xf.grad.reshape(logits.shape),
+                xa.grad.reshape(logits.shape)):
+        np.testing.assert_allclose(got.numpy(), ref_pallas, atol=GRAD_ATOL)
+        np.testing.assert_allclose(got.numpy(), ref_plain, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_heatmap_integral_pose_gradient_matches_jax(use_pallas, rng):
+    """The decode with fixroot: the masked root depth hands the backward a
+    g with a zero, and uvd_to_xyz a dense one."""
+    import jax
+    B, K, D, S = 2, 7, 8, 16
+    out = (rng.randn(B, K * D, S, S) * 2).astype(np.float32)
+    Kmat = _K(rng, B)
+    root = np.concatenate([np.zeros((B, 2)), rng.uniform(0.5, 2, (B, 1))],
+                          -1).astype(np.float32)
+    w_uvd = rng.randn(B, K, 3).astype(np.float32)
+    w_xyz = rng.randn(B, K, 3).astype(np.float32)
+    kw = dict(num_joints=K, depth_dim=D, height_dim=S, width_dim=S,
+              image_size=64.0, bbox_3d_shape=(1300, 1300, 1300), rootid=3,
+              fixroot=True)
+
+    def jloss(o):
+        uvd, xyz = JI.heatmap_integral_pose(
+            o, K=jnp.asarray(Kmat), root_trans=jnp.asarray(root),
+            use_pallas=use_pallas, **kw)
+        return jnp.sum(uvd * w_uvd) + jnp.sum(xyz * w_xyz)
+
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(out)))
+    for use_kernel in (None, False):
+        o = _t(out).requires_grad_()
+        uvd, xyz = TI.heatmap_integral_pose(o, K=_t(Kmat), root_trans=_t(root),
+                                            use_kernel=use_kernel, **kw)
+        ((uvd * _t(w_uvd)).sum() + (xyz * _t(w_xyz)).sum()).backward()
+        np.testing.assert_allclose(o.grad.numpy(), ref, atol=GRAD_ATOL)
+
+
+def test_soft_argmax_stats_are_the_cells_max_and_sum(rng):
+    x = (rng.randn(6, 3, 5, 7) * 4).astype(np.float32)
+    x[1, 0, 0, :3] = -np.inf                       # -inf logits in a cell
+    _, _, stats = TI.soft_argmax_3d_fwd_plain(_t(x))
+    flat = x.reshape(6, -1).astype(np.float64)
+    m = flat.max(-1)
+    np.testing.assert_array_equal(stats[:, 0].numpy(), m.astype(np.float32))
+    np.testing.assert_allclose(stats[:, 1].numpy(),
+                               np.exp(flat - m[:, None]).sum(-1), rtol=1e-6)
+
+
+def test_soft_argmax_backward_gives_zero_at_minus_inf(rng):
+    x = _t(rng.randn(2, 4, 4, 4).astype(np.float32))
+    x[0, 1, 2, :] = -np.inf
+    uvd, e, stats = TI.soft_argmax_3d_fwd_plain(x)
+    dx = TI.soft_argmax_3d_bwd_plain(x, e, stats, torch.ones(2, 3))
+    assert torch.isfinite(uvd).all() and torch.isfinite(dx).all()
+    assert float(dx[0, 1, 2].abs().max()) == 0.0
+
+
+def test_bf16_backward_returns_bf16_of_the_f32_gradient(rng):
+    """Under autocast the head emits bf16 logits: the Function saves them
+    and hands back a bf16 gradient, the f32 closed form rounded once."""
+    x = torch.from_numpy(rng.randn(6, 4, 8, 8).astype(np.float32)
+                         ).to(torch.bfloat16)
+    g = _t(rng.randn(6, 3).astype(np.float32))
+    xb = x.clone().requires_grad_()
+    (TI.SoftArgmax3d.apply(xb) * g).sum().backward()
+    assert xb.grad.dtype == torch.bfloat16
+    _, e, stats = TI.soft_argmax_3d_fwd_plain(x.float())
+    ref = TI.soft_argmax_3d_bwd_plain(x.float(), e, stats, g)
+    torch.testing.assert_close(xb.grad, ref.to(torch.bfloat16), rtol=0,
+                               atol=0)

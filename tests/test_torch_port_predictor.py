@@ -178,7 +178,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for n in names: __import__(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'horopose_tpu'))\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 19, names\n"
+        "assert {'horopose_tpu_torch.core.engine', "
+        "'horopose_tpu_torch.core.losses'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
