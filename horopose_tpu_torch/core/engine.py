@@ -1,9 +1,10 @@
-"""The supervised (stage-2) train and eval steps of the full network.
+"""The train and eval steps of the full network (stage 2) and DepthNet
+(stage 1).
 
-Port of `horopose_tpu/core/engine.py` for FullNet: the per-epoch LR
-schedule and the optimizer (:53-96), ground-truth assembly on the device
-(:103-173), the 10-loss battery (:180-282), and the train and eval steps
-(:316-351, :449-479).
+Port of `horopose_tpu/core/engine.py`: the per-epoch LR schedule and the
+optimizer (:53-96), ground-truth assembly on the device (:103-173), the
+10-loss battery (:180-282), FullNet's train and eval steps (:316-351,
+:449-479), and DepthNet's ground truth, loss and steps (:354-446).
 
 The JAX step is one jitted function over an immutable TrainState. Here the
 step runs eagerly on the model in place: the train-mode forward updates the
@@ -12,9 +13,9 @@ updates the parameters. Batches keep the JAX package's layout: nested
 `root` / `other` dicts of tensors with uint8 NHWC images, as
 `batch_to_torch` makes them from the JAX `DataLoader`'s numpy batches.
 
-Not ported yet: the DepthNet steps (ROADMAP queue 1 item 6), the PnP
-pseudo-ground truth of the real sets (queue 1 item 7), and the quaternion
-and multi-keypoint variants (queue 1 item 3).
+Not ported yet: the PnP pseudo-ground truth of the real sets (ROADMAP
+queue 1 item 7), and the quaternion and multi-keypoint variants (queue 1
+item 3).
 """
 
 from __future__ import annotations
@@ -294,6 +295,23 @@ def _forward(cfg, model: nn.Module, robot: Robot, batch: Batch,
     return outs, other_K
 
 
+def _update(cfg, loss: torch.Tensor, params: Sequence[nn.Parameter],
+            optimizer: torch.optim.Optimizer,
+            scheduler: torch.optim.lr_scheduler.LRScheduler) -> None:
+    """Backward, a zero gradient for a parameter that got none (JAX
+    differentiates every parameter), global-norm clipping of the raw
+    gradients, then the optimizer and scheduler steps."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if cfg.clip_gradient:
+        clip_by_global_norm_(params, float(cfg.clip_gradient))
+    optimizer.step()
+    scheduler.step()
+
+
 def build_full_train_step(cfg, model: nn.Module, robot: Robot,
                           optimizer: torch.optim.Optimizer,
                           scheduler: torch.optim.lr_scheduler.LRScheduler,
@@ -303,9 +321,8 @@ def build_full_train_step(cfg, model: nn.Module, robot: Robot,
 
     One step: train-mode forward (BatchNorm batch statistics, its running
     statistics updated in place; dropout from `generator`), the FK lift,
-    the losses, backward, global-norm clipping of the raw gradients, and
-    the optimizer and scheduler steps. A parameter that got no gradient is
-    given a zero one, as JAX differentiates every parameter."""
+    the losses, and `_update`: backward, clipping, the optimizer and
+    scheduler steps."""
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Batch, generator: Optional[torch.Generator]
@@ -314,18 +331,96 @@ def build_full_train_step(cfg, model: nn.Module, robot: Robot,
         gts = prepare_gt(cfg, robot, batch, pnp_fn)
         preds, other_K = _forward(cfg, model, robot, batch, gts, generator)
         loss, loss_dict = compute_full_losses(cfg, preds, gts, other_K)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if cfg.clip_gradient:
-            clip_by_global_norm_(params, float(cfg.clip_gradient))
-        optimizer.step()
-        scheduler.step()
+        _update(cfg, loss, params, optimizer, scheduler)
         return {k: v.detach() for k, v in dict(loss=loss, **loss_dict).items()}
 
     return step
+
+
+def prepare_depth_gt(cfg, batch: Batch) -> Dict[str, torch.Tensor]:
+    """Ground truth of the DepthNet stage: the root's camera-frame position
+    and depth (metres), the k prior from the configured bbox, and the
+    root's visibility in the crop."""
+    root = batch["root"]
+    gt_keypoints3d = root["keypoints_3d"].float()
+    root_K = root["K"].float()
+    K_original = batch["K_original"].float()
+    ref = int(cfg.reference_keypoint_id)
+    gt_root_trans = (batch["TCO"].float()[:, :3, 3] if ref == 0
+                     else gt_keypoints3d[:, ref, :])
+    if cfg.use_extended_bbox:
+        bboxes = root["bbox_gt2d_extended"].float()
+        fx, fy = root_K[:, 0, 0], root_K[:, 1, 1]
+    elif cfg.use_origin_bbox:
+        bboxes = batch["bbox_strict_bounded_original"].float()
+        fx, fy = K_original[:, 0, 0], K_original[:, 1, 1]
+    else:
+        bboxes = root["bbox_strict_bounded"].float()
+        fx, fy = root_K[:, 0, 0], root_K[:, 1, 1]
+    return dict(gt_root_trans=gt_root_trans,
+                gt_root_depth=gt_root_trans[:, 2:3],
+                k_values=k_value_from_bbox(bboxes, fx.abs(), fy.abs()),
+                uv_valid_mask=root["valid_mask_crop"].float()[:, ref:ref + 1])
+
+
+def depthnet_forward_loss(cfg, model: nn.Module, batch: Batch,
+                          gts: Mapping[str, torch.Tensor],
+                          row_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's forward in its current mode on the root crops ->
+    (loss, predicted depth (B, 1) in metres). The model gives millimetres;
+    with the xy branch its (x, y) are held to the root's (x, y) where the
+    root is visible in the crop."""
+    out = model(_normalize_images(batch["root"]["images"]), gts["k_values"])
+    xy = bool(cfg.use_rootnet_xy_branch)
+    pred_depth = (out[:, 2:3] if xy else out) / 1000.0
+    loss = L.elementwise_loss(cfg.depth_loss_func, pred_depth,
+                              gts["gt_root_depth"], row_mask=row_mask)
+    if xy:
+        m = gts["uv_valid_mask"]
+        loss = loss + L.elementwise_loss(
+            cfg.xy_loss_func, out[:, 0:2] * m,
+            gts["gt_root_trans"][:, 0:2] * m, row_mask=row_mask)
+    return loss, pred_depth
+
+
+def build_depthnet_train_step(cfg, model: nn.Module,
+                              optimizer: torch.optim.Optimizer,
+                              scheduler: torch.optim.lr_scheduler.LRScheduler):
+    """Returns step(batch) -> {"loss": device scalar}: train-mode forward
+    (BatchNorm batch statistics, running statistics updated in place), the
+    loss, and `_update`. RootNet has no dropout, so the step takes no
+    generator."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.train()
+        gts = prepare_depth_gt(cfg, batch)
+        loss, _ = depthnet_forward_loss(cfg, model, batch, gts)
+        _update(cfg, loss, params, optimizer, scheduler)
+        return dict(loss=loss.detach())
+
+    return step
+
+
+def build_depthnet_eval_step(cfg, model: nn.Module):
+    """Returns evaluate(batch) -> {loss, error_depth (B,), pred_depth
+    (B, 1)} in eval mode; a `_valid` (B,) pad mask in the batch makes the
+    loss a masked mean over the valid rows."""
+
+    @torch.no_grad()
+    def evaluate(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.eval()
+        gts = prepare_depth_gt(cfg, batch)
+        row_mask = batch.get("_valid")
+        if row_mask is not None:
+            row_mask = row_mask.float()
+        loss, pred_depth = depthnet_forward_loss(cfg, model, batch, gts,
+                                                 row_mask)
+        error_depth = (pred_depth[:, 0] - gts["gt_root_depth"][:, 0]).abs()
+        return dict(loss=loss, error_depth=error_depth, pred_depth=pred_depth)
+
+    return evaluate
 
 
 def build_full_eval_step(cfg, model: nn.Module, robot: Robot,

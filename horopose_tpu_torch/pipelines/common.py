@@ -1,17 +1,19 @@
 """Model and robot construction from a `FullNetConfig`.
 
 Port of `build_fullnet`, `make_robot` and `crop_sizes` from
-`horopose_tpu/pipelines/common.py`. The dataclass replaces the YAML config;
-its defaults are the panda flagship (`configs/panda/full.yaml`), model and
-stage-2 training alike. A key that file leaves out takes the JAX package's
-default (`horopose_tpu/config.py`).
+`horopose_tpu/pipelines/common.py`. The dataclass holds the keys of the YAML
+config that the port's FullNet and its stage-2 steps read; its defaults are
+the panda flagship (`configs/panda/full.yaml`), model and stage-2 training
+alike. A key that file leaves out takes the JAX package's default
+(`horopose_tpu/config.py`). `FullNetConfig.from_cfg` takes them from a
+config that `config.make_cfg` read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -43,8 +45,8 @@ class FullNetConfig:
     use_schedule: bool = True
     schedule_type: str = "exponential"
     n_epochs_warmup: int = 0
-    start_decay: float = 45
-    end_decay: float = 100
+    start_decay: float = 45.0
+    end_decay: float = 100.0
     final_decay: float = 0.01
     exponent: float = 0.95
     step_decay: float = 0.1
@@ -73,6 +75,32 @@ class FullNetConfig:
     kp2d_int_loss_weight: float = 10.0
     kp3d_int_loss_weight: float = 10.0
     align_3d_loss_weight: float = 0.0
+    # a stage-1 DepthNet checkpoint for the rootnet branch
+    # (pipelines/train_full.py::init_fullnet_state)
+    pretrained_rootnet: Optional[str] = None
+
+    @classmethod
+    def from_cfg(cls, cfg: Mapping) -> "FullNetConfig":
+        """The fields' values from a `config.make_cfg` config, each coerced
+        to its field's type (`image_size : 256.0` -> 256); keys without a
+        field are not read. ImageNet backbone weights are not ported yet."""
+        for key in ("backbone_pretrained", "rootnet_backbone_pretrained"):
+            if cfg.get(key):
+                raise NotImplementedError(
+                    f"{key}: loading ImageNet backbone weights is not "
+                    f"ported yet (ROADMAP queue 1 item 4)")
+        values = {}
+        for field in dataclasses.fields(cls):
+            if field.name not in cfg:
+                continue
+            v, default = cfg[field.name], field.default
+            if v is None or default is None:
+                values[field.name] = v
+            elif isinstance(default, tuple):
+                values[field.name] = tuple(float(e) for e in v)
+            else:
+                values[field.name] = type(default)(v)
+        return cls(**values)
 
 
 def crop_sizes(cfg: FullNetConfig) -> Tuple[int, int]:

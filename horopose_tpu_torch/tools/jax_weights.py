@@ -1,19 +1,21 @@
-"""JAX (flax) FullNet variables -> the port's PyTorch `state_dict`.
+"""JAX (flax) FullNet and RootNet variables -> the port's `state_dict`s.
 
-The inverse of `horopose_tpu/tools/torch_weights.py::
-convert_fullnet_reference_checkpoint`. The port's module names are the
-reference state-dict keys, so each flax leaf maps to one torch key:
+The inverses of `horopose_tpu/tools/torch_weights.py::
+convert_fullnet_reference_checkpoint` and `convert_rootnet_reference_
+checkpoint`. The port's module names are the reference state-dict keys, so
+each flax leaf maps to one torch key:
 
   conv weight    (kh, kw, I, O) -> (O, I, kh, kw)
   deconv weight  un-flip the taps, then (kh, kw, I, O) -> (I, O, kh, kw)
   linear weight  (I, O)         -> (O, I)
-  depth_layer    Dense (I, O)   -> 1x1 conv (O, I, 1, 1)
+  depth_layer    Dense (I, O)   -> 1x1 conv (O, I, 1, 1) (and offset_layer)
   batchnorm      scale/bias/mean/var -> weight/bias/running_mean/running_var
 
 Inside a flax block the submodules are auto-named in creation order
-(`Conv_0..3`, `BatchNorm_0..3`, the downsample conv/bn last). Input is
-nested dicts of numpy arrays; no JAX is needed. Every flax leaf must be
-consumed, or the conversion raises.
+(`Conv_0..3`, `BatchNorm_0..3`, the downsample conv/bn last), and so is
+the RootNet's backbone (`HRNet_0` / `ResNet_0`, the port's `backbone`).
+Input is nested dicts of numpy arrays; no JAX is needed. Every flax leaf
+must be consumed, or the conversion raises.
 """
 
 from __future__ import annotations
@@ -135,14 +137,24 @@ def _leaf_paths(tree: Mapping, prefix=()) -> Iterator[Tuple[str, ...]]:
             yield prefix + (k,)
 
 
-def fullnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
-                                backbone_name: str = "resnet50",
-                                rootnet_backbone_name: str = "hrnet32"
-                                ) -> Dict[str, torch.Tensor]:
-    """JAX FullNet `params` / `batch_stats` (nested dicts of arrays) ->
-    the port's FullNet state dict (float32 CPU tensors). BatchNorm's
-    `num_batches_tracked` has no flax counterpart; `load_state_dict` fills
-    it with 0."""
+def _rootnet_pairs(backbone_name: str) -> Iterator[_Pair]:
+    sub = "HRNet_0" if backbone_name.startswith("hrnet") else "ResNet_0"
+    yield from _backbone_pairs(backbone_name, "backbone.", (sub,))
+    for i, (ci, bi) in enumerate(((0, 1), (3, 4), (6, 7))):
+        yield "deconv", f"deconv_layers.{ci}", (f"deconv{i}",)
+        yield "bn", f"deconv_layers.{bi}", (f"deconv{i}_bn",)
+    yield "conv", "xy_layer", ("xy_layer",)
+    for i in range(1, 6):
+        yield "linear", f"depth_fc{i}", (f"fc{i}",)
+        yield "bn", f"depth_bn{i}", (f"fc{i}_bn",)
+    yield "dense_as_conv", "depth_layer", ("depth_layer",)
+    yield "dense_as_conv", "offset_layer", ("offset_layer",)
+
+
+def _state_dict_from_jax(pairs: Iterator[_Pair], params: Mapping,
+                         batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """Every pair whose flax module is present -> its torch tensors (float32
+    CPU); raises if a flax leaf is left over."""
     sd: Dict[str, np.ndarray] = {}
     used = set()
 
@@ -150,7 +162,7 @@ def fullnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
         used.add((kind,) + path + (leaf,))
         return np.asarray(_get(tree, path)[leaf], np.float32)
 
-    for kind, tk, fp in _fullnet_pairs(backbone_name, rootnet_backbone_name):
+    for kind, tk, fp in pairs:
         node = _get(params, fp)
         if node is None:
             continue            # module absent in this configuration
@@ -184,3 +196,27 @@ def fullnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
                          f"{'/'.join(left[0])}")
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in sd.items()}
+
+
+def fullnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                                backbone_name: str = "resnet50",
+                                rootnet_backbone_name: str = "hrnet32"
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX FullNet `params` / `batch_stats` (nested dicts of arrays) ->
+    the port's FullNet state dict (float32 CPU tensors). BatchNorm's
+    `num_batches_tracked` has no flax counterpart; `load_state_dict` fills
+    it with 0."""
+    return _state_dict_from_jax(
+        _fullnet_pairs(backbone_name, rootnet_backbone_name), params,
+        batch_stats)
+
+
+def rootnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                                backbone_name: str = "resnet50"
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX RootNet variables -> the port's RootNet state dict: the
+    auto-named `HRNet_0` / `ResNet_0` subtree becomes `backbone.*`, the
+    fc bottleneck `fc{i}` / `fc{i}_bn` becomes `depth_fc{i}` /
+    `depth_bn{i}`, and the Dense depth and offset heads become 1x1 convs."""
+    return _state_dict_from_jax(_rootnet_pairs(backbone_name), params,
+                                batch_stats)

@@ -2,6 +2,7 @@
 the `Predictor` end to end, and the port's import isolation."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -170,20 +171,37 @@ def test_predictor_rootnet_crop_size(rng):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every port module and chip_smoke.py, imported in a fresh process,
+    load none of jax, flax or horopose_tpu; no import line of
+    chip_smoke.py (most sit inside its functions) names them."""
     code = (
         "import pkgutil, sys\n"
         "import horopose_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: __import__(n)\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'horopose_tpu'))\n"
-        "assert len(names) >= 19, names\n"
+        "assert len(names) >= 36, names\n"
         "assert {'horopose_tpu_torch.core.engine', "
-        "'horopose_tpu_torch.core.losses'} <= set(names), names\n"
+        "'horopose_tpu_torch.core.losses', 'horopose_tpu_torch.config', "
+        "'horopose_tpu_torch.core.checkpoint', "
+        "'horopose_tpu_torch.core.loggers', "
+        "'horopose_tpu_torch.models.depth_net', "
+        "'horopose_tpu_torch.ops.conv3x3', "
+        "'horopose_tpu_torch.ops.conv3x3_cuda', "
+        "'horopose_tpu_torch.pipelines.train_depthnet', "
+        "'horopose_tpu_torch.pipelines.train_full', "
+        "'horopose_tpu_torch.tools.bench_conv'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        imports = [line for line in f
+                   if re.match(r"\s*(import|from)\s+(jax|flax|horopose_tpu)"
+                               r"(\s|\.|,|$)", line)]
+    assert not imports, imports
