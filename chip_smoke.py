@@ -12,15 +12,21 @@ Phases, each of which raises on failure:
   2. build every hand-written kernel from `horopose_tpu_torch/csrc/` with
      nvcc for sm_90a, one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
-     serving and training shapes in float32 and bfloat16 and at a ragged
-     shape, timed with CUDA events beside its bound: the soft-argmax
-     forward (with the (max, sum) it saves) and backward (each dx entry
-     against a bound scaled to that entry, and in L2);
+     serving and training shapes in float32 and bfloat16 and at ragged
+     shapes (odd W, whole splits and rows of -inf logits, logits one
+     element past a 16-byte boundary): the soft-argmax forward (with the
+     (max, sum) it saves) and backward (each dx entry against a bound
+     scaled to that entry, and in L2);
   3c. the 3x3 conv kernel against its plain version (element by element)
      and against cuDNN's `F.conv2d`, TF32 off, in float32 and bfloat16 at
      the HRNet branch-0 shapes (128 and 64, 64, 64, 32 -> 32), at the two
-     test shapes and at an odd-channel shape, timed beside its bound and
-     cuDNN; then its path, the `tools/bench_conv` entry point, once;
+     test shapes, at odd channel counts, F not a multiple of 32 and a deep
+     C; then its path, the `tools/bench_conv` entry point, once.
+     Every kernel is timed three ways (`timings`): `ms`, the median of
+     single calls between CUDA events (host dispatch included); `device_ms`,
+     back-to-back launches over a ring of inputs larger than twice the L2
+     cache, on the device alone (`tools/timing.py`); `host_ms`, the
+     wrapper's host time. The bound share is bound_ms / device_ms;
   4. serving end to end at full width: the panda flagship FullNet (resnet50
      reg + hrnet32 rootnet backbones, 256x256 crops, depth_dim 64) with
      random weights from a seed, answering requests of synthetic 480x640
@@ -129,6 +135,34 @@ STAGE1_STEPS, STAGE1_WARMUP, STAGE1_VAL_BATCHES = 12, 2, 2
 JPEG_HEADER = "/usr/include/jpeglib.h"
 
 
+CELL = (7, 64, 64, 64)            # 7 keypoints, a 64^3 heatmap each
+
+
+def sam_fwd_cases(b_train: int) -> list:
+    """Phase 3's forward cases (shape, dtype, kind): the serving and
+    training shapes, and the ragged ones: odd W with D*H*W not a multiple
+    of 8, whole splits and rows of -inf logits, logits one element past a
+    16-byte boundary."""
+    both = (torch.float32, torch.bfloat16)
+    return ([((b, *CELL), dt, None) for b in (1, 128, b_train) for dt in both]
+            + [(shape, dt, kind) for shape, kind in (
+                ((2, 3, 5, 7, 9), None), ((3, 7, 33, 65, 31), None),
+                ((2, 3, 16, 32, 64), "minus_inf"),
+                ((2, 3, 16, 32, 64), "offset")) for dt in both])
+
+
+def conv_cases(b_train: int) -> list:
+    """Phase 3c's conv cases (shape, dtype): the HRNet branch-0 shapes at
+    b=128 and at the training batch, the two test shapes, odd channel
+    counts, F not a multiple of 32 and a deep C, in both dtypes."""
+    return [(shape, dt) for shape in (
+        (128, BRANCH0_HW, BRANCH0_HW, BRANCH0_CHANNELS, BRANCH0_CHANNELS),
+        (b_train, BRANCH0_HW, BRANCH0_HW, BRANCH0_CHANNELS, BRANCH0_CHANNELS),
+        (2, 8, 8, 32, 32), (4, 16, 12, 8, 16), (3, 10, 14, 5, 7),
+        (2, 6, 6, 32, 48), (1, 8, 8, 224, 16))
+        for dt in (torch.float32, torch.bfloat16)]
+
+
 def time_ms(fn, reps: int) -> float:
     """Median of `reps` single-call CUDA-event timings, after one warm-up."""
     fn()
@@ -153,16 +187,55 @@ def soft_argmax_bound_ms(x: torch.Tensor) -> tuple:
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
-def check_soft_argmax(device, shapes, reps: int):
-    """Kernel against plain on the same inputs; returns one row per case."""
+def sam_logits(shape, dtype, kind, gen, device) -> torch.Tensor:
+    """(B*K, D, H, W) logits 3 * N(0, 1) in `dtype`. kind "minus_inf" sets
+    the first half of cell 0's rows (whole splits of the forward) and the
+    last row of the last cell to -inf; "offset" puts the tensor one element
+    past a 16-byte boundary, as a slice of a larger buffer."""
+    B, K, D, H, W = shape
+    x = (3 * torch.randn(B * K, D, H, W, generator=gen, device=device)
+         ).to(dtype)
+    if kind == "offset":
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+        buf[1:].copy_(x.flatten())
+        x = buf[1:].view(x.shape)
+    elif kind == "minus_inf":
+        x[0, :D // 2] = float("-inf")
+        x[-1, -1, -1] = float("-inf")
+    return x
+
+
+def timings(fn, ring: list, reps: int) -> dict:
+    """ms (median single call, host dispatch included), device_ms (over
+    `ring`, distinct inputs larger than twice the L2 cache together) and
+    host_ms of fn(input)."""
+    from horopose_tpu_torch.tools.timing import device_ms, host_ms
+    out = dict(ms=time_ms(lambda: fn(ring[-1]), reps),
+               host_ms=host_ms(fn, ring[-1], reps))
+    out["device_ms"] = device_ms(fn, ring, per_call_host_ms=out["host_ms"])
+    return out
+
+
+def ring_of(x: torch.Tensor, make) -> list:
+    """A timing ring of inputs like x: `make(n)` gives n of them stacked
+    along the first axis (or a tuple of such stacks), larger than twice the
+    L2 cache together, which are cut apart in the order they were
+    written."""
+    from horopose_tpu_torch.tools.timing import ring_size, ring_slices
+    n = ring_size(x.numel() * x.element_size())
+    return ring_slices(make(n), n)
+
+
+def check_soft_argmax(device, cases, reps: int, card: str = ""):
+    """Kernel against plain on the same inputs, case (shape, dtype, kind)
+    with kind None, "minus_inf" or "offset" (`sam_logits`); returns one row
+    per case."""
     from horopose_tpu_torch.ops.integral import soft_argmax_3d_fwd_plain
     from horopose_tpu_torch.ops.integral_cuda import soft_argmax_3d_fwd
     g = torch.Generator(device=device).manual_seed(SEED)
     rows = []
-    for shape, dtype in shapes:
-        B, K, D, H, W = shape
-        x = (3 * torch.randn(B * K, D, H, W, generator=g, device=device)
-             ).to(dtype)
+    for shape, dtype, kind in cases:
+        x = sam_logits(shape, dtype, kind, g, device)
         uvd, e, st = soft_argmax_3d_fwd(x)
         uvd_p, e_p, st_p = soft_argmax_3d_fwd_plain(x)  # reads the same values
         torch.cuda.synchronize()
@@ -172,18 +245,22 @@ def check_soft_argmax(device, shapes, reps: int):
         rel_s = float(((st[:, 1] - st_p[:, 1]).abs() / st_p[:, 1]).max())
         if not (err_uvd <= UVD_TOL and err_e <= E_TOL and err_m == 0.0
                 and rel_s <= S_REL_TOL):
-            raise AssertionError(f"soft_argmax {shape} {dtype}: |duvd| "
-                                 f"{err_uvd} |dE| {err_e} |dm| {err_m} "
-                                 f"rel ds {rel_s}")
+            raise AssertionError(f"soft_argmax {shape} {dtype} {kind}: "
+                                 f"|duvd| {err_uvd} |dE| {err_e} |dm| "
+                                 f"{err_m} rel ds {rel_s}")
         bound, bound_by = soft_argmax_bound_ms(x)
+        ring = ring_of(x, lambda n: sam_logits((n * shape[0], *shape[1:]),
+                                               dtype, kind, g, device))
+        t = timings(soft_argmax_3d_fwd, ring, reps)
+        del ring
         row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
-                   max_abs_err=err_uvd, max_abs_err_E=err_e,
-                   max_abs_err_m=err_m, max_rel_err_s=rel_s,
-                   ms=time_ms(lambda: soft_argmax_3d_fwd(x), reps),
+                   kind=kind, max_abs_err=err_uvd, max_abs_err_E=err_e,
+                   max_abs_err_m=err_m, max_rel_err_s=rel_s, **t,
                    plain_ms=time_ms(lambda: soft_argmax_3d_fwd_plain(x), reps),
-                   bound_ms=bound, bound_by=bound_by)
+                   bound_ms=bound, bound_by=bound_by,
+                   bound_share=bound / t["device_ms"])
         rows.append(row)
-        print("soft_argmax_3d_fwd", json.dumps(row), flush=True)
+        print("soft_argmax_3d_fwd", json.dumps(row), f"({card})", flush=True)
         del x, uvd, e, st, uvd_p, e_p, st_p
     return rows
 
@@ -241,7 +318,7 @@ def compare_dx(x, e, st, g, dx, dx_p, label: str) -> dict:
     return out
 
 
-def check_soft_argmax_bwd(device, cases, reps: int):
+def check_soft_argmax_bwd(device, cases, reps: int, card: str = ""):
     """The backward kernel against its plain version on the same (x, E,
     (m, s), g); a case may put a row of -inf logits in its first cell.
     Returns one row per case."""
@@ -264,14 +341,24 @@ def check_soft_argmax_bwd(device, cases, reps: int):
         errs = compare_dx(x, e, st, g, dx, dx_p,
                           f"soft_argmax_3d_bwd {shape} {dtype}")
         bound, bound_by = soft_argmax_bwd_bound_ms(x)
+        def make(n):
+            xs = (3 * torch.randn(n * x.shape[0], *x.shape[1:], generator=gen,
+                                  device=device)).to(dtype)
+            _, es, sts = soft_argmax_3d_fwd(xs)
+            gs = torch.randn(n * x.shape[0], 3, generator=gen, device=device)
+            return xs, es, sts, gs
+
+        ring = ring_of(x, make)
+        t = timings(lambda a: soft_argmax_3d_bwd(*a), ring, reps)
+        del ring
         row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
-                   minus_inf=with_inf, **errs,
-                   ms=time_ms(lambda: soft_argmax_3d_bwd(x, e, st, g), reps),
+                   minus_inf=with_inf, **errs, **t,
                    plain_ms=time_ms(
                        lambda: soft_argmax_3d_bwd_plain(x, e, st, g), reps),
-                   bound_ms=bound, bound_by=bound_by)
+                   bound_ms=bound, bound_by=bound_by,
+                   bound_share=bound / t["device_ms"])
         rows.append(row)
-        print("soft_argmax_3d_bwd", json.dumps(row), flush=True)
+        print("soft_argmax_3d_bwd", json.dumps(row), f"({card})", flush=True)
         del x, g, e, st, dx, dx_p
     return rows
 
@@ -303,9 +390,10 @@ def compare_conv(y, y_plain, y_lib, label: str) -> dict:
     return out
 
 
-def check_conv(device, cases, reps: int):
+def check_conv(device, cases, reps: int, card: str = ""):
     """The conv kernel against its plain version and cuDNN on the same x
-    and w, TF32 off; returns one row per case."""
+    and w, TF32 off, both timed on the device alone over a ring of inputs
+    larger than twice the L2 cache; returns one row per case."""
     from horopose_tpu_torch.ops.conv3x3 import conv3x3_s2d_plain
     from horopose_tpu_torch.ops.conv3x3_cuda import conv3x3_nhwc
     from horopose_tpu_torch.tools.bench_conv import bound_ms, library_conv
@@ -328,13 +416,20 @@ def check_conv(device, cases, reps: int):
             torch.cuda.synchronize()
             errs = compare_conv(y, y_plain, y_lib, f"conv3x3 {shape} {dtype}")
             bound, bound_by = bound_ms(*shape, dtype)
+            ring = ring_of(x, lambda n: torch.randn(
+                n * B, H, W, C, generator=gen, device=device).to(dtype))
+            t = timings(lambda a: conv3x3_nhwc(a, w), ring, reps)
+            lib = timings(library, ring, reps)
+            del ring
             row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
-                       **errs, ms=time_ms(lambda: conv3x3_nhwc(x, w), reps),
+                       **errs, **t,
                        plain_ms=time_ms(lambda: conv3x3_s2d_plain(x, w), reps),
-                       library_ms=time_ms(lambda: library(x), reps),
-                       bound_ms=bound, bound_by=bound_by)
+                       library_ms=lib["ms"],
+                       library_device_ms=lib["device_ms"],
+                       bound_ms=bound, bound_by=bound_by,
+                       bound_share=bound / t["device_ms"])
             rows.append(row)
-            print("conv3x3_nhwc", json.dumps(row), flush=True)
+            print("conv3x3_nhwc", json.dumps(row), f"({card})", flush=True)
             del x, w, y, y_plain, y_lib
     finally:
         (torch.backends.cudnn.allow_tf32,
@@ -908,28 +1003,20 @@ def main() -> int:
     # ---- 3. kernels against plain ----
     cfg = FullNetConfig()
     b_train = cfg.batch_size
-    cell = (7, 64, 64, 64)            # 7 keypoints, a 64^3 heatmap each
-    fwd_rows = check_soft_argmax(device, [
-        ((1, *cell), torch.float32), ((1, *cell), torch.bfloat16),
-        ((128, *cell), torch.float32), ((128, *cell), torch.bfloat16),
-        ((b_train, *cell), torch.float32),
-        ((b_train, *cell), torch.bfloat16),
-        ((2, 3, 5, 7, 9), torch.float32)], reps=20)
+    cell = CELL
+    fwd_rows = check_soft_argmax(device, sam_fwd_cases(b_train), reps=20,
+                                 card=card)
     bwd_rows = check_soft_argmax_bwd(device, [
         ((1, *cell), torch.float32, False),
         ((1, *cell), torch.bfloat16, False),
         ((b_train, *cell), torch.float32, False),
         ((b_train, *cell), torch.bfloat16, False),
-        ((2, 3, 5, 7, 9), torch.float32, True)], reps=20)
+        ((2, 3, 5, 7, 9), torch.float32, True)], reps=20, card=card)
 
     # ---- 3c. the conv kernel, then its path: the bench entry point ----
     branch0 = (BRANCH0_HW, BRANCH0_HW, BRANCH0_CHANNELS, BRANCH0_CHANNELS)
     conv_target = list(bench_conv.SHAPE)
-    conv_rows = check_conv(device, [
-        (shape, dtype) for shape in (bench_conv.SHAPE, (b_train, *branch0),
-                                     (2, 8, 8, 32, 32), (4, 16, 12, 8, 16))
-        for dtype in (torch.float32, torch.bfloat16)]
-        + [((3, 10, 14, 5, 7), torch.float32)], reps=20)
+    conv_rows = check_conv(device, conv_cases(b_train), reps=20, card=card)
     reset_counts()
     bench = bench_conv.run(device=device, card=card)
     print(json.dumps(bench), flush=True)
@@ -1009,9 +1096,10 @@ def main() -> int:
                   f"{BRANCH0_HW}] in one step, cuDNN: forward {fwd['ms']:.3f} "
                   f"ms over {fwd['count']} convs, backward {bwd['ms']:.3f} ms "
                   f"over {bwd['count']}; the conv kernel at that shape "
-                  f"{row['ms']:.4f} ms a forward conv (phase 3c; cuDNN alone "
-                  f"{row['library_ms']:.4f} ms), {fwd['count'] * row['ms']:.3f}"
-                  f" ms for the {fwd['count']} forwards ({card})", flush=True)
+                  f"{row['device_ms']:.4f} ms a forward conv on the device "
+                  f"(phase 3c; cuDNN alone {row['library_device_ms']:.4f} "
+                  f"ms), {fwd['count'] * row['device_ms']:.3f} ms for the "
+                  f"{fwd['count']} forwards ({card})", flush=True)
             if fwd["count"] == 0 or bwd["count"] == 0:
                 raise AssertionError("no branch-0 conv rows in the profile")
         reset_counts()
@@ -1038,8 +1126,8 @@ def main() -> int:
                     **extra):
         """The kernel's row at `shape` in bfloat16, its errors per dtype
         beside their tolerances, and its timings at the other shapes."""
-        row = next(r for r in rows
-                   if r["shape"] == shape and r["dtype"] == "bfloat16")
+        row = next(r for r in rows if r["shape"] == shape
+                   and r["dtype"] == "bfloat16" and not r.get("kind"))
         errors = {}
         for dt in ("float32", "bfloat16"):
             rs = [r for r in rows if r["dtype"] == dt]
@@ -1047,20 +1135,24 @@ def main() -> int:
                 k: max(r[k] for r in rs) for k in
                 ("max_abs_err", "max_err_over_tol", "l2_rel_err",
                  "library_rel_err") if k in row})
-        timings = [{k: r[k] for k in ("shape", "dtype", "ms", "plain_ms",
-                                      "library_ms", "bound_ms") if k in r}
+        timed = ("shape", "dtype", "kind", "ms", "device_ms", "host_ms",
+                 "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                 "bound_share")
+        timings = [{k: r[k] for k in timed if k in r}
                    for r in rows if r is not row]
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    device_ms=row["device_ms"], host_ms=row["host_ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"],
-                    library_ms=row.get("library_ms"), shape=row["shape"],
-                    dtype=row["dtype"], errors_by_dtype=errors,
-                    other_shapes=timings,
+                    bound_by=row["bound_by"], bound_share=row["bound_share"],
+                    library_ms=row.get("library_ms"),
+                    library_device_ms=row.get("library_device_ms"),
+                    shape=row["shape"], dtype=row["dtype"],
+                    errors_by_dtype=errors, other_shapes=timings,
                     launches_by_path={path: c[name] for path, c
                                       in path_launches.items()},
-                    **extra)
+                    card=card, **extra)
 
     sam_src = "horopose_tpu_torch/csrc/soft_argmax.cu"
     uvd_tol = {dt: dict(tol_abs=UVD_TOL) for dt in ("float32", "bfloat16")}
@@ -1070,10 +1162,14 @@ def main() -> int:
     conv_tol = {str(dt).split(".")[-1]: dict(
         tol_rel_max=CONV_F32_REL, tol_round_rtol=r,
         tol_library_rel=CONV_LIB_REL[dt]) for dt, r in CONV_ROUND_RTOL.items()}
+    b0_row = next(r for r in conv_rows if r["dtype"] == "bfloat16"
+                  and r["shape"] == [b_train, *branch0])
     print(json.dumps({"kernels": [
         kernel_line("soft_argmax_3d_fwd", sam_src,
                     "horopose_tpu/ops/integral_pallas.py:25", fwd_rows,
-                    fwd_launches, [128, *cell], uvd_tol),
+                    fwd_launches, [128, *cell], uvd_tol,
+                    device_kernels=["soft_argmax_3d_fwd_kernel",
+                                    "soft_argmax_3d_merge_kernel"]),
         kernel_line("soft_argmax_3d_bwd", sam_src,
                     "horopose_tpu/ops/integral_pallas.py:56", bwd_rows,
                     bwd_launches, [b_train, *cell], dx_tol),
@@ -1081,6 +1177,12 @@ def main() -> int:
                     "horopose_tpu/ops/conv_pallas.py:50", conv_rows,
                     path_launches["conv bench"]["conv3x3_nhwc"], conv_target,
                     conv_tol, bench=bench,
+                    branch0_vs_cudnn=dict(
+                        shape=b0_row["shape"], dtype="bfloat16",
+                        device_ms=b0_row["device_ms"],
+                        cudnn_device_ms=b0_row["library_device_ms"],
+                        speedup=b0_row["library_device_ms"]
+                        / b0_row["device_ms"]),
                     stage1_branch0_cudnn={n: r["branch0"]
                                           for n, r in stage1_runs.items()})]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,15 @@ one `nvcc` per source, all at once, and waits for them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from typing import Dict, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -80,3 +83,10 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _loaded[name] = ctypes.CDLL(library_path(name))
         return _loaded[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device `device_index`; the
+    wrappers size their grids by it."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

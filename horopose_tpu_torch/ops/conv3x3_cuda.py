@@ -4,9 +4,13 @@
 `horopose_tpu/ops/conv_pallas.py::_kernel`: a 3x3 stride-1 SAME convolution
 without bias, x (B, H, W, C) NHWC and w (3, 3, C, F) HWIO -> (B, H, W, F),
 float32 or bfloat16 with float32 accumulation. It computes the convolution
-directly (8x16 output pixels and 32 output channels a block, input patch
-and weights staged in shared memory); the Pallas kernel's space-to-depth
-packing served the TPU's 128-lane MXU. At the HRNet branch-0 shape
+directly; the Pallas kernel's space-to-depth packing served the TPU's
+128-lane MXU. bfloat16 runs an implicit GEMM on the tensor cores
+(mma.sync): a persistent grid of `plan_blocks` blocks walks tiles of
+TILE_ROWS x TILE_COLS output pixels of one image and TILE_F output
+channels (`tile_origin`), with a ring of three halo buffers and resident
+weights in shared memory. float32 keeps a direct kernel on the float32 units (8x16
+pixels and 32 output channels a block). At the HRNet branch-0 shape
 (128, 64, 64, 32) -> 32 in bf16 it is bound by 67.1 MB of input and output,
 0.020 ms at 3.35 TB/s.
 
@@ -17,6 +21,7 @@ A CUDA tensor always takes the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -24,10 +29,38 @@ from horopose_tpu_torch import cuda_build
 
 SOURCE = "conv3x3"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, w, is_bf16, B, H, W, C, F, y, stream, device
-_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I]
-# the grid puts the image on blockIdx.z
+# x, w, is_bf16, B, H, W, C, F, blocks, y, stream, device
+_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I]
+# the float32 grid puts the image on blockIdx.z
 _MAX_BATCH = 65535
+# the bfloat16 kernel's tile (csrc/conv3x3.cu: kRows, kCols, kN)
+TILE_ROWS, TILE_COLS, TILE_F = 8, 64, 32
+# persistent bfloat16 blocks an SM: each takes 222 KB of shared memory
+BLOCKS_PER_SM = 1
+
+
+def conv_tiles(B: int, H: int, W: int, Fo: int) -> int:
+    """Output tiles of the bfloat16 kernel."""
+    return (-(-Fo // TILE_F) * B * -(-H // TILE_ROWS)
+            * -(-W // TILE_COLS))
+
+
+def tile_origin(t: int, B: int, H: int, W: int) -> Tuple[int, int, int, int]:
+    """(output chunk, image, first row, first column) of tile t: output
+    chunk major, then image, row tile, column tile, as the kernel's
+    `step_tile` orders them."""
+    tiles_h, tiles_w = -(-H // TILE_ROWS), -(-W // TILE_COLS)
+    per_f = B * tiles_h * tiles_w
+    r = t % per_f
+    rt = r % (tiles_h * tiles_w)
+    return (t // per_f, r // (tiles_h * tiles_w), (rt // tiles_w) * TILE_ROWS,
+            (rt % tiles_w) * TILE_COLS)
+
+
+def plan_blocks(n_tiles: int, sm_count: int) -> int:
+    """Persistent blocks of the bfloat16 kernel; block i takes tiles i,
+    i + blocks, i + 2 * blocks, ..."""
+    return max(1, min(n_tiles, BLOCKS_PER_SM * sm_count))
 
 
 def _function():
@@ -64,16 +97,20 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if H % 2 or W % 2:
         raise ValueError(f"{name} wants even H and W, got {H}x{W}")
     Fo = w.shape[3]
-    if B > _MAX_BATCH or max(H, W, C, Fo) >= 2 ** 31:
+    bf16 = x.dtype == torch.bfloat16
+    if (B > _MAX_BATCH or max(H, W, C, Fo) >= 2 ** 31
+            or (bf16 and conv_tiles(B, H, W, Fo) >= 2 ** 31)):
         raise ValueError(f"{name}: unsupported shape {tuple(x.shape)} -> "
                          f"{Fo} channels")
     w = w.to(x.dtype).contiguous()
     y = torch.empty(B, H, W, Fo, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    blocks = (plan_blocks(conv_tiles(B, H, W, Fo),
+                          cuda_build.sm_count(x.device.index)) if bf16 else 0)
     err = _function()(
-        x.data_ptr(), w.data_ptr(), int(x.dtype == torch.bfloat16), B, H, W,
-        C, Fo, y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), int(bf16), B, H, W, C, Fo, blocks,
+        y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         x.device.index)
     conv3x3_nhwc.launches += 1
     if err != 0:

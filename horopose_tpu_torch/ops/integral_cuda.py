@@ -7,8 +7,12 @@ E = (E_w, E_h, E_d), uvd = E / dim - 0.5 and the cell's (max, sum of
 exp(x - max)) in one read of the logits; the normalised tensor is never
 written. It is bound by that read: BK * D*H*W * sizeof(x) bytes (3.7 MB per
 image in bf16 at the serving shape, about 0.14 ms at b=128 at 3.35 TB/s).
-Design: one block of 256 threads per cell, an online (max, sum, 3 weighted
-sums) per thread, then a block reduction with the same rescaling.
+Design: each cell's D*H rows are split over several blocks
+(`plan_splits`), which read 16-byte vectors along W-rows and keep an online
+(max, sum, 3 weighted sums) per thread; a second kernel merges each cell's
+splits. A base pointer off 16 bytes, or a row that is not a whole number of
+16-byte vectors, takes the same kernels with scalar loads
+(`vector_loads`).
 
 `soft_argmax_3d_bwd` replaces `_bwd_kernel`: the closed-form gradient
 dx = exp(x - m) / s * sum_axis g_axis / dim_axis * (idx_axis - E_axis), in
@@ -33,13 +37,34 @@ from horopose_tpu_torch import cuda_build
 SOURCE = "soft_argmax"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # x, is_bf16, bk, D, H, W, uvd, ex, stats, stream, device
-    "soft_argmax_3d_fwd": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I],
+    # x, is_bf16, vec, bk, D, H, W, splits, rows_per_split, partial, uvd,
+    # ex, stats, stream, device
+    "soft_argmax_3d_fwd": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _I],
     # x, is_bf16, bk, D, H, W, ex, stats, g, dx, stream, device
     "soft_argmax_3d_bwd": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I],
 }
-# the backward's grid puts the cell on blockIdx.y
+# the backward's grid puts the cell on blockIdx.y, the forward's the split
 _MAX_BWD_CELLS = 65535
+_MAX_SPLITS = 65535
+# the forward splits cells until the grid has this many blocks an SM
+BLOCKS_PER_SM = 4
+
+
+def plan_splits(bk: int, rows: int, sm_count: int) -> Tuple[int, int]:
+    """(splits, rows_per_split) for `bk` cells of `rows` W-rows each: about
+    BLOCKS_PER_SM blocks an SM in all, at least one row a split. Split i
+    takes rows [i * rows_per_split, min((i + 1) * rows_per_split, rows)),
+    and no split is empty."""
+    want = -(-BLOCKS_PER_SM * sm_count // bk)
+    per = max(1, rows // want, -(-rows // _MAX_SPLITS))
+    return -(-rows // per), per
+
+
+def vector_loads(data_ptr: int, W: int, element_size: int) -> bool:
+    """Whether the forward may read 16-byte vectors: the base is 16-byte
+    aligned and a row of W logits is a whole number of vectors."""
+    return data_ptr % 16 == 0 and (W * element_size) % 16 == 0
 
 
 def _function(name: str):
@@ -94,10 +119,13 @@ def soft_argmax_3d_fwd(x: torch.Tensor
     stats = torch.empty(BK, 2, **f32)
     if BK == 0:
         return uvd, ex, stats
+    splits, per = plan_splits(BK, D * H, cuda_build.sm_count(x.device.index))
+    partial = torch.empty(BK, splits, 5, **f32)
+    vec = vector_loads(x.data_ptr(), W, x.element_size())
     err = _function("soft_argmax_3d_fwd")(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), BK, D, H, W,
-        uvd.data_ptr(), ex.data_ptr(), stats.data_ptr(), _stream(x),
-        x.device.index)
+        x.data_ptr(), int(x.dtype == torch.bfloat16), int(vec), BK, D, H, W,
+        splits, per, partial.data_ptr(), uvd.data_ptr(), ex.data_ptr(),
+        stats.data_ptr(), _stream(x), x.device.index)
     soft_argmax_3d_fwd.launches += 1
     if err != 0:
         raise RuntimeError(f"soft_argmax_3d_fwd launch failed: CUDA error "

@@ -8,7 +8,11 @@ then the time per convolution of DEPTH chained convolutions (32 -> 32
 channels compose) per iteration over 20 iterations, CUDA events, the first
 (building) iteration excluded. The JAX script's scan fed a 1e-9 perturbation
 back between iterations so that XLA could not hoist them; eager PyTorch
-runs every launch, so each iteration restarts from x.
+runs every launch, so each iteration restarts from x. A chained input was
+written just before it is read and may still sit in L2, so the line also
+gives each conv's time on the device alone over a ring of distinct inputs
+larger than twice the L2 cache (`tools/timing.py`), and the kernel's share
+of the bound in that time.
 
 Run on a machine with an NVIDIA card:
 
@@ -29,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from horopose_tpu_torch.ops.conv3x3 import conv3x3
+from horopose_tpu_torch.tools.timing import device_ms, host_ms, ring_size
 
 DEPTH = 8
 ITERS = 20
@@ -117,16 +122,26 @@ def run(shape=SHAPE, dtype: torch.dtype = torch.bfloat16, device="cuda",
     err = float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-6))
     t_lib = time_chained_ms(library, x)
     t_kernel = time_chained_ms(kernel, x)
+    ring = [x] + [torch.as_tensor(rng.randn(B, H, W, C), dtype=dtype,
+                                  device=device)
+                  for _ in range(ring_size(x.numel() * x.element_size()) - 1)]
+    dev_kernel = device_ms(kernel, ring,
+                           per_call_host_ms=host_ms(kernel, x))
+    dev_lib = device_ms(library, ring, per_call_host_ms=host_ms(library, x))
     flops = conv_flops(*shape)
     peak = PEAK_FLOPS[torch.bfloat16]
     bound, bound_by = bound_ms(*shape, dtype)
     return dict(metric=f"conv3x3_{H}x{W}x{C}to{Fo}_b{B}",
                 dtype=str(dtype).split(".")[-1], kernel_ms=t_kernel,
                 cudnn_ms=t_lib, speedup=t_lib / t_kernel, rel_err=err,
+                kernel_device_ms=dev_kernel, cudnn_device_ms=dev_lib,
+                device_speedup=dev_lib / dev_kernel,
                 bound_ms=bound, bound_by=bound_by,
+                kernel_bound_share=bound / dev_kernel,
+                cudnn_bound_share=bound / dev_lib,
                 kernel_bf16_peak_share=flops / peak / (t_kernel * 1e-3),
                 cudnn_bf16_peak_share=flops / peak / (t_lib * 1e-3),
-                depth=DEPTH, iters=ITERS, card=card)
+                depth=DEPTH, iters=ITERS, ring=len(ring), card=card)
 
 
 def main() -> int:

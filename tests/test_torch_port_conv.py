@@ -143,3 +143,60 @@ def test_bound_counts_bytes_and_operations():
     ms, by = bound_ms(*SHAPE, torch.float32)
     assert by == "operations"
     assert ms == pytest.approx(2 * 128 * 64 * 64 * 9 * 32 * 32 / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize("H,W,Fo", [(64, 64, 32), (10, 14, 7), (6, 6, 48),
+                                    (2, 130, 33)])
+def test_conv_tiles_cover_every_output_once(H, W, Fo):
+    """The bf16 kernel's persistent blocks, each walking tiles i, i +
+    blocks, ..., write every output (b, y, x, f) exactly once, for 1 to
+    1024 images and ragged H, W and F."""
+    from horopose_tpu_torch.ops.conv3x3_cuda import (TILE_COLS, TILE_F,
+                                                     TILE_ROWS, conv_tiles,
+                                                     plan_blocks, tile_origin)
+    for B in ((1, 2, 5) if H * W > 1000 else (1, 2, 5, 128, 1024)):
+        n = conv_tiles(B, H, W, Fo)
+        blocks = plan_blocks(n, 132)
+        cover = np.zeros((B, H, W, Fo), np.int32)
+        for block in range(blocks):
+            for t in range(block, n, blocks):
+                fc, b, y0, x0 = tile_origin(t, B, H, W)
+                cover[b, y0:y0 + TILE_ROWS, x0:x0 + TILE_COLS,
+                      fc * TILE_F:(fc + 1) * TILE_F] += 1
+        assert (cover == 1).all()
+
+
+def _one_ulp_off(y: torch.Tensor) -> torch.Tensor:
+    """y with every entry moved one ulp of its dtype away from zero."""
+    if y.dtype == torch.float32:
+        return torch.nextafter(y, y.sign() * float("inf"))
+    yf = y.float()
+    ulp = torch.exp2(torch.floor(torch.log2(yf.abs().clamp(min=1e-30))) - 7)
+    return (yf + yf.sign() * ulp).to(y.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_check_at_a_ragged_shape(dtype, rng):
+    """chip_smoke.compare_conv at C = 5, F = 7, where the bf16 kernel stages
+    its halo with scalar loads and stores scalars: an output rounded once
+    from float64 and one a ulp off pass; a dropped tap, w transposed in
+    (C, F) (on its 5 x 5 square) and a halo one pixel off fail."""
+    x, w = (torch.from_numpy(a).to(dtype) for a in
+            _inputs(rng, (2, 8, 8, 5, 7)))
+    y_plain = conv3x3_s2d_plain(x, w)
+    y_lib = _lib(x, w).to(dtype)
+    off = _one_ulp_off(y_plain)
+    assert not torch.equal(off, y_plain)
+    for name, good in (("rounded once", y_lib), ("one ulp off", off)):
+        errs = chip_smoke.compare_conv(good, y_plain, y_lib, name)
+        assert errs["n_over_tol"] == 0
+    no_tap, square = w.clone(), w.clone()
+    no_tap[1, 2] = 0
+    square[:, :, :, :5] = w[:, :, :, :5].transpose(2, 3)
+    shifted = torch.zeros_like(x)
+    shifted[:, :, :-1] = x[:, :, 1:]
+    for name, y in (("tap dropped", conv3x3_s2d_plain(x, no_tap)),
+                    ("w transposed", conv3x3_s2d_plain(x, square)),
+                    ("halo off by one", conv3x3_s2d_plain(shifted, w))):
+        with pytest.raises(AssertionError):
+            chip_smoke.compare_conv(y, y_plain, y_lib, name)

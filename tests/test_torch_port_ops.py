@@ -344,3 +344,130 @@ def test_bf16_backward_returns_bf16_of_the_f32_gradient(rng):
     ref = TI.soft_argmax_3d_bwd_plain(x.float(), e, stats, g)
     torch.testing.assert_close(xb.grad, ref.to(torch.bfloat16), rtol=0,
                                atol=0)
+
+
+# ---- the split forward: its plan, and a plain mirror of its merge ----
+
+@pytest.mark.parametrize("rows", [1, 7, 35, 33 * 65, 64 * 64])
+def test_split_plan_covers_every_row_once(rows):
+    """For 1 to 1024 cells, the splits of a cell's rows are contiguous,
+    none is empty, each row falls in exactly one, and the grid reaches
+    BLOCKS_PER_SM blocks an SM where the rows allow it."""
+    sm = 132
+    for bk in range(1, 1025):
+        splits, per = integral_cuda.plan_splits(bk, rows, sm)
+        assert 1 <= splits <= rows
+        assert (splits - 1) * per < rows <= splits * per
+        starts = np.arange(splits) * per
+        counts = np.zeros(rows, np.int64)
+        for a, b in zip(starts, np.minimum(starts + per, rows)):
+            counts[a:b] += 1
+        assert (counts == 1).all()
+        assert bk * splits >= min(integral_cuda.BLOCKS_PER_SM * sm,
+                                  bk * rows)
+
+
+def test_vector_loads_need_alignment_and_whole_vectors():
+    assert integral_cuda.vector_loads(256, 64, 2)
+    assert integral_cuda.vector_loads(256, 64, 4)
+    assert not integral_cuda.vector_loads(258, 64, 2)   # one bf16 past 16 B
+    assert not integral_cuda.vector_loads(260, 64, 4)
+    assert not integral_cuda.vector_loads(256, 31, 2)   # odd W
+    assert not integral_cuda.vector_loads(256, 12, 2)   # 24-byte rows
+    assert integral_cuda.vector_loads(256, 12, 4)       # 48-byte rows
+
+
+_F32_EMPTY = float(np.finfo(np.float32).min)   # the kernel's empty max
+
+
+def _split_forward(x: torch.Tensor, splits: int):
+    """Plain mirror of the CUDA split forward in float32: each split of a
+    cell's D*H rows folds its logits into (m, s, s_w, s_h, s_d), with
+    -FLT_MAX as the empty max, then the splits merge by rescaling with
+    exp(m_i - m). Returns (uvd, E, stats) as the wrapper does."""
+    BK, D, H, W = x.shape
+    rows = D * H
+    per = -(-rows // splits)
+    flat = x.float().reshape(BK, rows, W)
+    r = torch.arange(rows)
+    idx_w = torch.arange(W, dtype=torch.float32)
+    idx_h, idx_d = (r % H).float(), (r // H).float()
+    parts = []
+    for a in range(0, rows, per):
+        seg = flat[:, a:a + per]
+        m = seg.amax(dim=(1, 2)).clamp(min=_F32_EMPTY)
+        e = torch.exp(seg - m[:, None, None])
+        row_s = e.sum(2)
+        parts.append(torch.stack([m, row_s.sum(1), (e * idx_w).sum((1, 2)),
+                                  (row_s * idx_h[a:a + per]).sum(1),
+                                  (row_s * idx_d[a:a + per]).sum(1)], -1))
+    p = torch.stack(parts, 1)                 # (BK, splits, 5)
+    m = p[..., 0].amax(1)
+    c = torch.exp(p[..., 0] - m[:, None])
+    s, sw, sh, sd = ((p[..., k] * c).sum(1) for k in range(1, 5))
+    ex = torch.stack([sw / s, sh / s, sd / s], -1)
+    uvd = ex / torch.tensor([W, H, D], dtype=torch.float32) - 0.5
+    return uvd, ex, torch.stack([m, s], -1)
+
+
+SPLIT_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("kind", ["plain", "minus_inf_split", "max_in_last"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, "rows"])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7, 9), (1, 2, 4, 6, 8)])
+def test_split_mirror_matches_pallas_and_plain(shape, splits, kind, rng):
+    """D != H != W. minus_inf_split: the first split's logits are all -inf
+    (it must merge as a no-op; with one split, the first half of the
+    rows); max_in_last: the cell's max lies in its last split."""
+    B, K, D, H, W = shape
+    rows = D * H
+    n = rows if splits == "rows" else splits
+    per = -(-rows // n)
+    logits = (rng.randn(B, K, D, H, W) * 3).astype(np.float32)
+    if kind == "minus_inf_split":
+        logits.reshape(B * K, rows, W)[0, :min(per, rows // 2)] = -np.inf
+    elif kind == "max_in_last":
+        logits.reshape(B * K, rows, W)[:, -1, -1] = 20.0
+    x = _t(logits).reshape(B * K, D, H, W)
+    uvd, ex, stats = _split_forward(x, n)
+    pallas = np.asarray(soft_argmax_3d_pallas(
+        jnp.asarray(logits.reshape(B, K, -1)), D, H, W)).reshape(B * K, 3)
+    uvd_p, ex_p, stats_p = TI.soft_argmax_3d_fwd_plain(x)
+    np.testing.assert_allclose(uvd.numpy(), pallas, atol=SPLIT_ATOL)
+    np.testing.assert_allclose(uvd.numpy(), uvd_p.numpy(), atol=SPLIT_ATOL)
+    np.testing.assert_allclose(ex.numpy(), ex_p.numpy(),
+                               atol=SPLIT_ATOL * max(D, H, W))
+    np.testing.assert_array_equal(stats[:, 0].numpy(), stats_p[:, 0].numpy())
+    np.testing.assert_allclose(stats[:, 1].numpy(), stats_p[:, 1].numpy(),
+                               rtol=1e-6)
+
+
+def test_split_mirror_at_the_planned_splits(rng):
+    """The mirror at the split counts `plan_splits` picks for small and
+    large cell counts agrees with the plain version."""
+    D, H, W = 4, 6, 8
+    for bk in (1, 7, 64):
+        splits, _ = integral_cuda.plan_splits(bk, D * H, 132)
+        x = _t((rng.randn(bk, D, H, W) * 3).astype(np.float32))
+        uvd, _, _ = _split_forward(x, splits)
+        np.testing.assert_allclose(uvd.numpy(),
+                                   TI.soft_argmax_3d_fwd_plain(x)[0].numpy(),
+                                   atol=SPLIT_ATOL)
+
+
+def test_timing_ring_exceeds_l2_and_slices_in_order():
+    """The device timing ring: more than twice the L2 cache in all, cut
+    from one tensor (or a tuple of tensors) in the order it was written."""
+    from horopose_tpu_torch.tools.timing import (RING_BYTES, ring_size,
+                                                 ring_slices)
+    for nbytes in (7560, 3_670_016, 33_554_432, 234_881_024):
+        n = ring_size(nbytes)
+        assert n >= 2 and n * nbytes > RING_BYTES
+    big = torch.arange(12).reshape(6, 2)
+    parts = ring_slices(big, 3)
+    assert [p.tolist() for p in parts] == [[[0, 1], [2, 3]], [[4, 5], [6, 7]],
+                                           [[8, 9], [10, 11]]]
+    pairs = ring_slices((big, big[:, 0]), 2)
+    assert len(pairs) == 2 and torch.equal(pairs[1][1], torch.tensor([6, 8,
+                                                                      10]))
