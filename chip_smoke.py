@@ -16,12 +16,13 @@ Phases, each of which raises on failure:
      shapes (odd W, whole splits and rows of -inf logits, logits one
      element past a 16-byte boundary): the soft-argmax forward (with the
      (max, sum) it saves) and backward (each dx entry against a bound
-     scaled to that entry, and in L2);
+     scaled to that entry, and in L2), both dtypes at every ragged shape;
   3c. the 3x3 conv kernel against its plain version (element by element)
      and against cuDNN's `F.conv2d`, TF32 off, in float32 and bfloat16 at
      the HRNet branch-0 shapes (128 and 64, 64, 64, 32 -> 32), at the two
-     test shapes, at odd channel counts, F not a multiple of 32 and a deep
-     C; then its path, the `tools/bench_conv` entry point, once.
+     test shapes, at odd channel counts, F not a multiple of 32, a deep C
+     and 65536 images of 2x2; then its path, the `tools/bench_conv` entry
+     point, once.
      Every kernel is timed three ways (`timings`): `ms`, the median of
      single calls between CUDA events (host dispatch included); `device_ms`,
      back-to-back launches over a ring of inputs larger than twice the L2
@@ -138,28 +139,46 @@ JPEG_HEADER = "/usr/include/jpeglib.h"
 CELL = (7, 64, 64, 64)            # 7 keypoints, a 64^3 heatmap each
 
 
+# ragged (shape, kind) cases of both soft-argmax kernels: odd W with D*H*W
+# not a multiple of 8, whole splits and rows of -inf logits, logits one
+# element past a 16-byte boundary
+SAM_RAGGED = (((2, 3, 5, 7, 9), None), ((3, 7, 33, 65, 31), None),
+              ((2, 3, 16, 32, 64), "minus_inf"),
+              ((2, 3, 16, 32, 64), "offset"))
+
+
 def sam_fwd_cases(b_train: int) -> list:
     """Phase 3's forward cases (shape, dtype, kind): the serving and
-    training shapes, and the ragged ones: odd W with D*H*W not a multiple
-    of 8, whole splits and rows of -inf logits, logits one element past a
-    16-byte boundary."""
+    training shapes, and the ragged ones, in both dtypes."""
     both = (torch.float32, torch.bfloat16)
     return ([((b, *CELL), dt, None) for b in (1, 128, b_train) for dt in both]
-            + [(shape, dt, kind) for shape, kind in (
-                ((2, 3, 5, 7, 9), None), ((3, 7, 33, 65, 31), None),
-                ((2, 3, 16, 32, 64), "minus_inf"),
-                ((2, 3, 16, 32, 64), "offset")) for dt in both])
+            + [(shape, dt, kind) for shape, kind in SAM_RAGGED
+               for dt in both])
+
+
+def sam_bwd_cases(b_train: int) -> list:
+    """Phase 3's backward cases (shape, dtype, kind), each in both dtypes:
+    b=1 and the training shape, a -inf row at (2, 3, 5, 7, 9), and the
+    other ragged ones, W = 31 also with -inf rows: W = 31 and logits off 16
+    bytes take the kernel's scalar path."""
+    both = (torch.float32, torch.bfloat16)
+    return ([((b, *CELL), dt, None) for b in (1, b_train) for dt in both]
+            + [((2, 3, 5, 7, 9), dt, "row_inf") for dt in both]
+            + [(shape, dt, kind) for shape, kind in
+               (*SAM_RAGGED[1:], ((3, 7, 33, 65, 31), "minus_inf"))
+               for dt in both])
 
 
 def conv_cases(b_train: int) -> list:
     """Phase 3c's conv cases (shape, dtype): the HRNet branch-0 shapes at
     b=128 and at the training batch, the two test shapes, odd channel
-    counts, F not a multiple of 32 and a deep C, in both dtypes."""
+    counts, F not a multiple of 32, a deep C and more images than a grid
+    dimension's 65535, in both dtypes."""
     return [(shape, dt) for shape in (
         (128, BRANCH0_HW, BRANCH0_HW, BRANCH0_CHANNELS, BRANCH0_CHANNELS),
         (b_train, BRANCH0_HW, BRANCH0_HW, BRANCH0_CHANNELS, BRANCH0_CHANNELS),
         (2, 8, 8, 32, 32), (4, 16, 12, 8, 16), (3, 10, 14, 5, 7),
-        (2, 6, 6, 32, 48), (1, 8, 8, 224, 16))
+        (2, 6, 6, 32, 48), (1, 8, 8, 224, 16), (65536, 2, 2, 8, 8))
         for dt in (torch.float32, torch.bfloat16)]
 
 
@@ -189,9 +208,10 @@ def soft_argmax_bound_ms(x: torch.Tensor) -> tuple:
 
 def sam_logits(shape, dtype, kind, gen, device) -> torch.Tensor:
     """(B*K, D, H, W) logits 3 * N(0, 1) in `dtype`. kind "minus_inf" sets
-    the first half of cell 0's rows (whole splits of the forward) and the
-    last row of the last cell to -inf; "offset" puts the tensor one element
-    past a 16-byte boundary, as a slice of a larger buffer."""
+    the first half of cell 0's rows (whole splits) and the last row of the
+    last cell to -inf; "row_inf" the first row of cell 0; "offset" puts the
+    tensor one element past a 16-byte boundary, as a slice of a larger
+    buffer."""
     B, K, D, H, W = shape
     x = (3 * torch.randn(B * K, D, H, W, generator=gen, device=device)
          ).to(dtype)
@@ -202,6 +222,8 @@ def sam_logits(shape, dtype, kind, gen, device) -> torch.Tensor:
     elif kind == "minus_inf":
         x[0, :D // 2] = float("-inf")
         x[-1, -1, -1] = float("-inf")
+    elif kind == "row_inf":
+        x[0, 0, 0] = float("-inf")
     return x
 
 
@@ -320,30 +342,27 @@ def compare_dx(x, e, st, g, dx, dx_p, label: str) -> dict:
 
 def check_soft_argmax_bwd(device, cases, reps: int, card: str = ""):
     """The backward kernel against its plain version on the same (x, E,
-    (m, s), g); a case may put a row of -inf logits in its first cell.
+    (m, s), g), case (shape, dtype, kind) with kind as in `sam_logits`.
     Returns one row per case."""
     from horopose_tpu_torch.ops.integral import soft_argmax_3d_bwd_plain
     from horopose_tpu_torch.ops.integral_cuda import (soft_argmax_3d_bwd,
                                                       soft_argmax_3d_fwd)
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     rows = []
-    for shape, dtype, with_inf in cases:
+    for shape, dtype, kind in cases:
         B, K, D, H, W = shape
-        x = (3 * torch.randn(B * K, D, H, W, generator=gen, device=device)
-             ).to(dtype)
-        if with_inf:
-            x[0, 0, 0] = float("-inf")
+        x = sam_logits(shape, dtype, kind, gen, device)
         g = torch.randn(B * K, 3, generator=gen, device=device)
         _, e, st = soft_argmax_3d_fwd(x)
         dx = soft_argmax_3d_bwd(x, e, st, g)
         dx_p = soft_argmax_3d_bwd_plain(x, e, st, g)
         torch.cuda.synchronize()
         errs = compare_dx(x, e, st, g, dx, dx_p,
-                          f"soft_argmax_3d_bwd {shape} {dtype}")
+                          f"soft_argmax_3d_bwd {shape} {dtype} {kind}")
         bound, bound_by = soft_argmax_bwd_bound_ms(x)
+
         def make(n):
-            xs = (3 * torch.randn(n * x.shape[0], *x.shape[1:], generator=gen,
-                                  device=device)).to(dtype)
+            xs = sam_logits((n * B, *shape[1:]), dtype, kind, gen, device)
             _, es, sts = soft_argmax_3d_fwd(xs)
             gs = torch.randn(n * x.shape[0], 3, generator=gen, device=device)
             return xs, es, sts, gs
@@ -352,7 +371,7 @@ def check_soft_argmax_bwd(device, cases, reps: int, card: str = ""):
         t = timings(lambda a: soft_argmax_3d_bwd(*a), ring, reps)
         del ring
         row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
-                   minus_inf=with_inf, **errs, **t,
+                   kind=kind, **errs, **t,
                    plain_ms=time_ms(
                        lambda: soft_argmax_3d_bwd_plain(x, e, st, g), reps),
                    bound_ms=bound, bound_by=bound_by,
@@ -1006,12 +1025,8 @@ def main() -> int:
     cell = CELL
     fwd_rows = check_soft_argmax(device, sam_fwd_cases(b_train), reps=20,
                                  card=card)
-    bwd_rows = check_soft_argmax_bwd(device, [
-        ((1, *cell), torch.float32, False),
-        ((1, *cell), torch.bfloat16, False),
-        ((b_train, *cell), torch.float32, False),
-        ((b_train, *cell), torch.bfloat16, False),
-        ((2, 3, 5, 7, 9), torch.float32, True)], reps=20, card=card)
+    bwd_rows = check_soft_argmax_bwd(device, sam_bwd_cases(b_train), reps=20,
+                                     card=card)
 
     # ---- 3c. the conv kernel, then its path: the bench entry point ----
     branch0 = (BRANCH0_HW, BRANCH0_HW, BRANCH0_CHANNELS, BRANCH0_CHANNELS)

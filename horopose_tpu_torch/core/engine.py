@@ -14,8 +14,8 @@ updates the parameters. Batches keep the JAX package's layout: nested
 `batch_to_torch` makes them from the JAX `DataLoader`'s numpy batches.
 
 Not ported yet: the PnP pseudo-ground truth of the real sets (ROADMAP
-queue 1 item 7), and the quaternion and multi-keypoint variants (queue 1
-item 3).
+queue 1 item 6), and the quaternion and multi-keypoint variants (queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -114,11 +114,11 @@ def prepare_gt(cfg, robot: Robot, batch: Batch,
     if pnp_fn is not None:
         raise NotImplementedError(
             "PnP pseudo-ground truth for real sets is not ported yet "
-            "(ROADMAP queue 1 item 7: ops/pnp.py)")
+            "(ROADMAP queue 1 item 6: ops/pnp.py)")
     if int(cfg.rotation_dim) != 6:
         raise NotImplementedError(
             f"rotation_dim {cfg.rotation_dim} needs rotmat_to_quat, not "
-            f"ported yet (ROADMAP queue 1 item 3)")
+            f"ported yet (ROADMAP queue 1 item 5)")
     other, root = batch["other"], batch["root"]
     TCO = batch["TCO"].float()
     gt_pose = batch["jointpose"].float()
@@ -188,7 +188,7 @@ def compute_full_losses(cfg, preds: Mapping[str, torch.Tensor],
     """
     if "depths" in preds:       # the per-keypoint depths of a multi_kp head
         raise NotImplementedError("multi_kp losses are not ported yet "
-                                  "(ROADMAP queue 1 item 3)")
+                                  "(ROADMAP queue 1 item 5)")
     image_size = float(cfg.image_size)
     pred_pose = preds["pose"]
     gt_pose = gts["gt_pose"]

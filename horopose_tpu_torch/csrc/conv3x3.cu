@@ -45,17 +45,29 @@
 // stores nothing; C not a multiple of 8 (or x off 16 bytes) stages the
 // halo with scalar loads, F not a multiple of 8 stores scalars.
 //
-// float32: a direct kernel, no tensor cores (TF32 would not keep
-// float32's accuracy): one block of 256 threads per 8x16 tile of output
-// pixels of one image and per 32 output channels. For each chunk of 16
-// input channels the block stages the (8+2) x (16+2) input patch, its halo
-// zero-filled at the image border, and the chunk's 9 x 16 x 32 weights in
-// shared memory (30.6 KB). Each thread accumulates 4 pixels (along a row) x
-// 4 channels in float32 registers: per tap and input channel, one 16-byte
-// weight load, 4 input loads and 16 FMAs. The patch rows are padded to 17
-// floats per pixel, so the 4 pixel groups of a warp read 4 different
-// banks. A chunk or a block that runs past C or F computes on zeros and
-// stores nothing there, so any C and F work.
+// float32: FFMA on the float32 units, no tensor cores (TF32 would not
+// keep float32's accuracy), so the 0.144 ms of the FFMA rate bound it;
+// what counts is the share of instruction slots that are FFMAs and how
+// much of the staging hides behind them. The same tiles as bfloat16
+// (kFRows = 8 output rows of kFCols = 64 pixels, kFN = 32 output channels)
+// on a persistent grid of two blocks an SM, 128 threads a block. A warp takes
+// two output rows; a thread holds a register tile of 2 rows x 8 pixels x 8
+// output channels, 128 float32 accumulators (255 registers in all). For
+// each input channel it loads its 72 weights (18 16-byte loads from a
+// [tap][c][f] slab), then for each of the 4 input rows its rows touch, the
+// 10 values of its row segment once, and applies every (ky, kx) tap that
+// row feeds to them from registers: 58 shared loads feed 1152 FMAs. For
+// each chunk of kFK = 8 input channels the block copies the tile's 10 x 66
+// patch as 16-byte channel quads (cp.async; a zero-size source fills the
+// SAME padding and the channels past C) and the chunk's weights into a
+// ring of kFStages = 3 slots (33 KB each); one barrier a step, then the
+// copies of the step two ahead, within a tile or into the next one, are
+// started before the step's products. Each patch row of quads is padded by
+// one quad every 8 pixels, so the loads of a warp's 8 pixel groups fall on
+// distinct banks. Any C and F: a chunk past C or F computes on zeros and
+// stores nothing there; C not a multiple of 4 (or x off 16 bytes) stages
+// the patch with 4-byte copies, F not a multiple of 4 (or w, y off 16
+// bytes) the weights, and y is then stored as scalars.
 
 #include <cstdint>
 
@@ -63,108 +75,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kTileH = 8;        // output rows per block
-constexpr int kTileW = 16;       // output columns per block
-constexpr int kCB = 16;          // input channels per staged chunk
-constexpr int kFB = 32;          // output channels per block
-constexpr int kPix = 4;          // pixels per thread, along a row
-constexpr int kFPer = 4;         // output channels per thread
-constexpr int kThreads = (kTileH * kTileW / kPix) * (kFB / kFPer);
-constexpr int kPatchH = kTileH + 2;
-constexpr int kPatchW = kTileW + 2;
-constexpr int kCStride = kCB + 1;  // padded pixel stride in the patch
-static_assert(kThreads == 256, "one warp = 4 pixel groups x 8 channel groups");
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, int H, int W,
-               int C, int F, int tiles_w, T* __restrict__ y) {
-  __shared__ float patch[kPatchH * kPatchW * kCStride];
-  __shared__ __align__(16) float wts[9 * kCB * kFB];
-
-  const int b = blockIdx.z;
-  const int ty0 = (blockIdx.x / tiles_w) * kTileH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTileW;
-  const int f0 = blockIdx.y * kFB;
-  const int fg = threadIdx.x % (kFB / kFPer);      // channel group, 0..7
-  const int pg = threadIdx.x / (kFB / kFPer);      // pixel group, 0..31
-  const int row = pg / (kTileW / kPix);
-  const int col0 = (pg % (kTileW / kPix)) * kPix;
-  const T* xb = x + static_cast<size_t>(b) * H * W * C;
-
-  float acc[kPix][kFPer];
-#pragma unroll
-  for (int i = 0; i < kPix; ++i)
-#pragma unroll
-    for (int j = 0; j < kFPer; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += kCB) {
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < kPatchH * kPatchW * kCB; i += kThreads) {
-      const int c = i % kCB;
-      const int p = i / kCB;
-      const int gy = ty0 - 1 + p / kPatchW;
-      const int gx = tx0 - 1 + p % kPatchW;
-      const int gc = c0 + c;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && gc < C)
-        v = to_float(xb[(static_cast<size_t>(gy) * W + gx) * C + gc]);
-      patch[p * kCStride + c] = v;
-    }
-    for (int i = threadIdx.x; i < 9 * kCB * kFB; i += kThreads) {
-      const int f = i % kFB;
-      const int c = (i / kFB) % kCB;
-      const int tap = i / (kFB * kCB);
-      const int gc = c0 + c;
-      const int gf = f0 + f;
-      float v = 0.f;
-      if (gc < C && gf < F)
-        v = to_float(w[(static_cast<size_t>(tap) * C + gc) * F + gf]);
-      wts[i] = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const float* prow =
-            patch + ((row + ky) * kPatchW + col0 + kx) * kCStride;
-        const float* wtap = wts + (ky * 3 + kx) * kCB * kFB + fg * kFPer;
-#pragma unroll
-        for (int c = 0; c < kCB; ++c) {
-          const float4 wv = *reinterpret_cast<const float4*>(wtap + c * kFB);
-#pragma unroll
-          for (int i = 0; i < kPix; ++i) {
-            const float xv = prow[i * kCStride + c];
-            acc[i][0] = fmaf(xv, wv.x, acc[i][0]);
-            acc[i][1] = fmaf(xv, wv.y, acc[i][1]);
-            acc[i][2] = fmaf(xv, wv.z, acc[i][2]);
-            acc[i][3] = fmaf(xv, wv.w, acc[i][3]);
-          }
-        }
-      }
-    }
-  }
-
-  const int oy = ty0 + row;
-  if (oy >= H) return;
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    const int ox = tx0 + col0 + i;
-    if (ox >= W) continue;
-    const int f = f0 + fg * kFPer;
-    T* out = y + ((static_cast<size_t>(b) * H + oy) * W + ox) * F + f;
-#pragma unroll
-    for (int j = 0; j < kFPer; ++j)
-      if (f + j < F) store(out + j, acc[i][j]);
-  }
-}
 
 // ---- bfloat16: implicit GEMM on the tensor cores ----
 
@@ -420,20 +330,262 @@ conv3x3_bf16_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+// ---- float32: register tiles on the float32 units ----
+
+// Build-time variants for tools/conv_variants.py: the staging ring's depth,
+// and CONV_F32_SKIP 1 (leave out the products) or 2 (leave out the copies
+// after the first steps) to time each half alone.
+#ifndef CONV_F32_STAGES
+#define CONV_F32_STAGES 3
+#endif
+#ifndef CONV_F32_SKIP
+#define CONV_F32_SKIP 0
+#endif
+constexpr int kFStages = CONV_F32_STAGES;  // staged chunks in the ring
+constexpr int kFRows = 8;        // output rows a tile
+constexpr int kFCols = 64;       // output columns a tile
+constexpr int kFN = 32;          // output channels a tile
+constexpr int kFK = 8;           // input channels a staged chunk
+constexpr int kFQ = kFK / 4;     // channel quads a chunk
+constexpr int kFRpt = 2;         // output rows a thread (and a warp)
+constexpr int kFPix = 8;         // pixels a thread, along each of its rows
+constexpr int kFCpt = 8;         // output channels a thread
+constexpr int kFThreads = 32 * kFRows / kFRpt;
+constexpr int kFHaloH = kFRows + 2;
+constexpr int kFHaloW = kFCols + 2;
+// a patch row of channel quads (16 bytes): pixel p at p + p / 8, so that
+// the loads of a warp's 8 pixel groups, 9 quads apart, fall on 8 banks
+constexpr int kFRowQ = kFHaloW + kFHaloW / 8;
+constexpr int kFPatch = kFQ * kFHaloH * kFRowQ * 4;  // [quad][row][pixel][4]
+constexpr int kFWts = 9 * kFK * kFN;                 // [tap][c][f]
+constexpr int kFStage = kFPatch + kFWts;             // floats a ring slot
+constexpr int kFSmem = kFStages * kFStage * 4;
+static_assert(kFCols == 8 * kFPix && kFN == 4 * kFCpt && kFCpt == 8,
+              "a warp: 8 pixel groups of 8 columns x 4 channel groups of 8");
+static_assert(kFStage % 4 == 0, "16-byte aligned ring slots");
+
+// 4 bytes from gmem to smem; a src_bytes of 0 writes zeros
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+struct FTile {
+  int f0, b, oy0, ox0, c0;
+};
+
+// Step s of this block: its (s / nC)-th tile (tiles blockIdx.x, +
+// gridDim.x, ...), input chunk s % nC. Tiles run output-chunk major, then
+// image, row tile, column tile.
+__device__ __forceinline__ FTile f32_step_tile(int s, int nC, int B,
+                                               int tiles_h, int tiles_w) {
+  const int t = blockIdx.x + (s / nC) * gridDim.x;
+  const int per_f = B * tiles_h * tiles_w;
+  const int r = t % per_f;
+  const int rt = r % (tiles_h * tiles_w);
+  return {(t / per_f) * kFN, r / (tiles_h * tiles_w), (rt / tiles_w) * kFRows,
+          (rt % tiles_w) * kFCols, (s % nC) * kFK};
+}
+
+__global__ void __launch_bounds__(kFThreads, 2)
+conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   int B, int H, int W, int C, int F, int tiles_h,
+                   int tiles_w, int n_tiles, int fast_in, int fast_w,
+                   int fast_out, float* __restrict__ y) {
+  extern __shared__ __align__(16) float fsmem[];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int pg = lane >> 2;    // pixel group: columns pg * 8 .. + 7
+  const int fg = lane & 3;     // channels fg * 4 .. + 3 and 16 + fg * 4 .. + 3
+  const int nC = (C + kFK - 1) / kFK;
+  const int my_tiles = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int n_steps = my_tiles * nC;
+
+  // Copy step s's patch (kFHaloH x kFHaloW pixels x kFK channels, zeros
+  // outside the image and past C) and weights (9 x kFK x kFN, zeros past C
+  // or F) into ring slot s % kFStages.
+  auto stage = [&](int s) {
+    const FTile t = f32_step_tile(s, nC, B, tiles_h, tiles_w);
+    float* patch = fsmem + (s % kFStages) * kFStage;
+    float* wts = patch + kFPatch;
+    const float* xb = x + static_cast<size_t>(t.b) * H * W * C;
+    if (fast_in) {  // C a multiple of 4 and x 16-byte aligned: quads
+      for (int i = tid; i < kFQ * kFHaloH * kFHaloW; i += kFThreads) {
+        const int q = i % kFQ;
+        const int p = i / kFQ;
+        const int pr = p / kFHaloW;
+        const int pc = p - pr * kFHaloW;
+        const int gy = t.oy0 - 1 + pr;
+        const int gx = t.ox0 - 1 + pc;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W &&
+                        t.c0 + 4 * q < C;
+        const float* src =
+            ok ? xb + (static_cast<size_t>(gy) * W + gx) * C + t.c0 + 4 * q
+               : x;
+        cp_async16(patch + ((q * kFHaloH + pr) * kFRowQ + pc + pc / 8) * 4,
+                   src, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kFK * kFHaloH * kFHaloW; i += kFThreads) {
+        const int c = i % kFK;
+        const int p = i / kFK;
+        const int pr = p / kFHaloW;
+        const int pc = p - pr * kFHaloW;
+        const int gy = t.oy0 - 1 + pr;
+        const int gx = t.ox0 - 1 + pc;
+        const bool ok =
+            gy >= 0 && gy < H && gx >= 0 && gx < W && t.c0 + c < C;
+        const float* src =
+            ok ? xb + (static_cast<size_t>(gy) * W + gx) * C + t.c0 + c : x;
+        cp_async4(patch + (((c / 4) * kFHaloH + pr) * kFRowQ + pc + pc / 8) *
+                              4 + c % 4,
+                  src, ok ? 4 : 0);
+      }
+    }
+    if (fast_w) {  // F a multiple of 4 and w 16-byte aligned
+      for (int i = tid; i < 9 * kFK * (kFN / 4); i += kFThreads) {
+        const int f = (i % (kFN / 4)) * 4;
+        const int ck = (i / (kFN / 4)) % kFK;
+        const int tap = i / (kFK * (kFN / 4));
+        const bool ok = t.c0 + ck < C && t.f0 + f < F;
+        const float* src =
+            ok ? w + (static_cast<size_t>(tap) * C + t.c0 + ck) * F + t.f0 + f
+               : w;
+        cp_async16(wts + (tap * kFK + ck) * kFN + f, src, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < kFWts; i += kFThreads) {
+        const int f = i % kFN;
+        const int ck = (i / kFN) % kFK;
+        const int tap = i / (kFK * kFN);
+        const bool ok = t.c0 + ck < C && t.f0 + f < F;
+        const float* src =
+            ok ? w + (static_cast<size_t>(tap) * C + t.c0 + ck) * F + t.f0 + f
+               : w;
+        cp_async4(wts + i, src, ok ? 4 : 0);
+      }
+    }
+  };
+
+  float acc[kFRpt][kFPix][kFCpt];  // [row][pixel][fg * 4 + j, 16 + fg * 4 + j]
+  for (int s = 0; s < kFStages - 1; ++s) {  // one commit group a step
+    if (s < n_steps) stage(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    const FTile t = f32_step_tile(s, nC, B, tiles_h, tiles_w);
+    cp_async_wait<kFStages - 2>();
+    // step s's copies are in place, and every warp is done with step s - 1,
+    // whose ring slot the next copies overwrite
+    __syncthreads();
+    if (s + kFStages - 1 < n_steps && CONV_F32_SKIP != 2)
+      stage(s + kFStages - 1);
+    cp_async_commit();  // maybe empty
+
+    if (t.c0 == 0) {
+#pragma unroll
+      for (int o = 0; o < kFRpt; ++o)
+#pragma unroll
+        for (int i = 0; i < kFPix; ++i)
+#pragma unroll
+          for (int j = 0; j < kFCpt; ++j) acc[o][i][j] = 0.f;
+    }
+    const float* patch = fsmem + (s % kFStages) * kFStage;
+    const float* prow = patch + (warp * kFRpt * kFRowQ + pg * (kFPix + 1)) * 4;
+    const float* wcol = patch + kFPatch + fg * 4;
+    if (CONV_F32_SKIP != 1) {
+#pragma unroll 1
+      for (int c = 0; c < kFK; ++c) {
+        // the weights of channel c for the thread's output channels
+        float wv[9][kFCpt];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+          for (int h = 0; h < kFCpt / 4; ++h) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                wcol + (tap * kFK + c) * kFN + h * 16);
+            wv[tap][4 * h] = v.x;
+            wv[tap][4 * h + 1] = v.y;
+            wv[tap][4 * h + 2] = v.z;
+            wv[tap][4 * h + 3] = v.w;
+          }
+        const float* xc = prow + (c / 4) * kFHaloH * kFRowQ * 4 + c % 4;
+#pragma unroll
+        for (int r = 0; r < kFRpt + 2; ++r) {
+          // input row r of the thread's rows: its 8 pixels and the two
+          // beside them
+          float xv[kFPix + 2];
+#pragma unroll
+          for (int i = 0; i < kFPix + 2; ++i)
+            xv[i] = xc[(r * kFRowQ + i + i / kFPix) * 4];
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky) {
+            const int o = r - ky;  // the output row this tap row feeds
+            if (o < 0 || o >= kFRpt) continue;
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+              for (int i = 0; i < kFPix; ++i)
+#pragma unroll
+                for (int j = 0; j < kFCpt; ++j)
+                  acc[o][i][j] = fmaf(xv[i + kx], wv[ky * 3 + kx][j],
+                                      acc[o][i][j]);
+          }
+        }
+      }
+    }
+
+    if (t.c0 + kFK >= C) {  // the tile's last chunk: write it back
+#pragma unroll
+      for (int o = 0; o < kFRpt; ++o) {
+        const int oy = t.oy0 + warp * kFRpt + o;
+        if (oy >= H) continue;
+        float* yrow = y + (static_cast<size_t>(t.b) * H + oy) * W * F;
+#pragma unroll
+        for (int i = 0; i < kFPix; ++i) {
+          const int ox = t.ox0 + pg * kFPix + i;
+          if (ox >= W) continue;
+          float* out = yrow + static_cast<size_t>(ox) * F + t.f0;
+#pragma unroll
+          for (int h = 0; h < kFCpt / 4; ++h) {
+            const int f = h * 16 + fg * 4;
+            if (fast_out) {  // F a multiple of 4, y 16-byte aligned
+              if (t.f0 + f < F)
+                *reinterpret_cast<float4*>(out + f) = make_float4(
+                    acc[o][i][4 * h], acc[o][i][4 * h + 1],
+                    acc[o][i][4 * h + 2], acc[o][i][4 * h + 3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (t.f0 + f + j < F) out[f + j] = acc[o][i][4 * h + j];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // x: (B, H, W, C), w: (3, 3, C, F), y: (B, H, W, F), contiguous, all float32
-// (is_bf16 = 0) or all bfloat16 (1). float32: B at most 65535 (the grid's z
-// limit). bfloat16: `blocks` persistent blocks (at most the number of
-// tiles, B * ceil(H / kRows) * ceil(W / 64) * ceil(F / 32)). Launches on
-// `stream` of `device` and returns cudaGetLastError() (0 when the launch
-// was accepted).
+// (is_bf16 = 0) or all bfloat16 (1). `blocks` persistent blocks, at most the
+// number of tiles, B * ceil(H / 8) * ceil(W / 64) * ceil(F / 32), below
+// 2^31. Launches on `stream` of `device` and returns cudaGetLastError() (0
+// when the launch was accepted).
 extern "C" int conv3x3_nhwc(const void* x, const void* w, int is_bf16, int B,
                             int H, int W, int C, int F, int blocks, void* y,
                             void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
   if (is_bf16) {
     err = cudaFuncSetAttribute(conv3x3_bf16_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -442,20 +594,23 @@ extern "C" int conv3x3_nhwc(const void* x, const void* w, int is_bf16, int B,
     const int tiles_h = (H + kRows - 1) / kRows;
     const int tiles_w = (W + kCols - 1) / kCols;
     const int n_tiles = ((F + kN - 1) / kN) * B * tiles_h * tiles_w;
-    const auto aligned = [](const void* p) {
-      return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    };
     conv3x3_bf16_mma_kernel<<<blocks, kMmaThreads, kMmaSmem, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), B, H, W, C,
         F, tiles_h, tiles_w, n_tiles, C % 8 == 0 && aligned(x),
         F % 8 == 0 && aligned(y), static_cast<bf16*>(y));
   } else {
-    const int tiles_w = (W + kTileW - 1) / kTileW;
-    const int tiles_h = (H + kTileH - 1) / kTileH;
-    const dim3 grid(tiles_h * tiles_w, (F + kFB - 1) / kFB, B);
-    conv3x3_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), H, W, C,
-        F, tiles_w, static_cast<float*>(y));
+    err = cudaFuncSetAttribute(conv3x3_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kFSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tiles_h = (H + kFRows - 1) / kFRows;
+    const int tiles_w = (W + kFCols - 1) / kFCols;
+    const int n_tiles = ((F + kFN - 1) / kFN) * B * tiles_h * tiles_w;
+    conv3x3_f32_kernel<<<blocks, kFThreads, kFSmem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), B, H, W,
+        C, F, tiles_h, tiles_w, n_tiles, C % 4 == 0 && aligned(x),
+        F % 4 == 0 && aligned(w), F % 4 == 0 && aligned(y),
+        static_cast<float*>(y));
   }
   return static_cast<int>(cudaGetLastError());
 }

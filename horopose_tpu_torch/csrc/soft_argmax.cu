@@ -42,16 +42,30 @@
 //
 // Backward bound: one read of x and one write of dx, BK * D*H*W * 2 *
 // sizeof(x) bytes: 469.8 MB in bf16 at the training shape (64 images, 7
-// cells of 64^3), 0.140 ms at 3.35 TB/s; 0.280 ms in float32. About 12
-// float32 operations per logit stay far below the card's rate, so bytes
-// bound it.
+// cells of 64^3), 0.140 ms at 3.35 TB/s; 0.280 ms in float32. Bytes bound
+// it as long as each logit costs few instructions: the card runs about
+// 30 T thread-instructions a second, so ~14 a logit take 0.055 ms at that
+// shape. A first design that found (d, h, w) by two runtime integer
+// divisions a logit and moved 2-byte scalars spent ~60 and ran at 42% of
+// the bound in bf16.
 //
-// Backward design, simple first: a 2-D grid, blockIdx.y the cell and
-// blockIdx.x a fixed chunk of kChunk logits within it, so that even b=1
-// runs hundreds of blocks. Each block loads its cell's (m, s, E, g) once;
-// each thread handles kChunk / 256 logits at stride 256 (coalesced), and
-// finds (d, h, w) by integer division. 16-byte loads and a row-wise index
-// walk are left for later.
+// Backward design: the forward's grid and walk. Blocks (cell, split) on
+// (blockIdx.x, blockIdx.y), each split a run of whole W-rows of one cell
+// (the wrapper's `plan_splits`), so b=1 fills the card and the cell count
+// has no 65535 cap. tpr threads share a row, each taking 16-byte vectors
+// (8 bf16 or 4 float32 logits) at stride tpr along it; loads of
+// kBwdUnroll = 8 rows are started before any is used, twice the forward's
+// depth, as a thread here also holds its results until it stores them. A
+// thread's w comes from its vector's column, so its column terms
+// g_w/W (w - E_w) are computed once a column; (d, h) advance by a constant
+// once a row, and the row term g_h/H (h - E_h) + g_d/D (d - E_d) is
+// computed once a row. A logit then costs a convert, x - m, expf, x 1/s, one add of its
+// column term to the row term and one multiply; dx goes back as one
+// 16-byte store a vector, bf16 pairs packed with round-to-nearest. expf
+// (not ex2.approx of (x - m) * log2 e, whose rounded product costs ~1e-6
+// relative at |x - m| ~ 33) keeps the card check's 2e-6 bound. A base
+// pointer of x or dx that is not 16-byte aligned, or a row whose bytes are
+// not a multiple of 16, takes the same kernel with one logit a "vector".
 
 #include <cfloat>
 #include <cuda_bf16.h>
@@ -61,8 +75,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// logits per block in the backward: 8 per thread
-constexpr int kChunk = 8 * kThreads;
 // -FLT_MAX rather than -inf as the empty max: exp(-FLT_MAX - m) is 0 for
 // any real m and exp(0) is 1 when both sides are empty, so no NaN appears
 // from (-inf) - (-inf).
@@ -70,20 +82,12 @@ constexpr float kEmpty = -FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
 // rows whose loads a thread of the forward has in flight at once
 constexpr int kUnroll = 4;
+// ... of the backward, which holds its loads and results in registers
+constexpr int kBwdUnroll = 8;
 
 struct Acc {
   float m, s, sw, sh, sd;
 };
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ Acc merge(const Acc& a, const Acc& b) {
   const float m = fmaxf(a.m, b.m);
@@ -277,18 +281,55 @@ soft_argmax_3d_merge_kernel(const float* __restrict__ partial, long long bk,
   }
 }
 
-template <typename T>
+// n float32 values into p in T, rounded to nearest; one 16-byte store when
+// n is the vector width (p then 16-byte aligned), else n scalar stores
+template <int N>
+__device__ __forceinline__ void store_values(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = v[i];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_values(__nv_bfloat16* p,
+                                             const float (&v)[N]) {
+  if constexpr (N == 8) {
+    unsigned u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // element 2i in the low half
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      u[i] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(u[0], u[1], u[2], u[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = __float2bfloat16(v[i]);
+  }
+}
+
+// Block (cell, split) writes dx over rows [split * rows_per_split,
+// + rows_per_split) of its cell, walking them as the forward does: N
+// logits a vector (W a multiple of N when N > 1), tpr threads a row.
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 soft_argmax_3d_bwd_kernel(const T* __restrict__ x,
                           const float* __restrict__ ex,
                           const float* __restrict__ stats,
                           const float* __restrict__ g, int D, int H, int W,
-                          T* __restrict__ dx) {
-  const int hw = H * W;
-  const int n = D * hw;
-  const size_t cell = blockIdx.y;
-  const int begin = blockIdx.x * kChunk;
-  const int end = min(begin + kChunk, n);
+                          int rows_per_split, int tpr, T* __restrict__ dx) {
+  const int rows = D * H;
+  const int row0 = blockIdx.y * rows_per_split;
+  const int row1 = min(row0 + rows_per_split, rows);
+  const int vpr = W / N;  // vectors a row
+  const int tx = threadIdx.x & (tpr - 1);
+  const int ty = threadIdx.x / tpr;
+  const int rpp = kThreads / tpr;  // rows a pass
+  const int dd = rpp / H;          // (d, h) step between a thread's rows
+  const int dh = rpp - dd * H;
+  const size_t cell = blockIdx.x;
   const float m = stats[2 * cell];
   // 1/s is inf for a cell of all -inf logits, whose softmax is undefined:
   // dx is then NaN there, as in the plain version. A -inf logit in any
@@ -298,18 +339,44 @@ soft_argmax_3d_bwd_kernel(const T* __restrict__ x,
               e_d = ex[3 * cell + 2];
   const float g_w = g[3 * cell] / W, g_h = g[3 * cell + 1] / H,
               g_d = g[3 * cell + 2] / D;
-  const T* xc = x + cell * n;
-  T* dxc = dx + cell * n;
-  for (int i = begin + threadIdx.x; i < end; i += kThreads) {
-    const int d = i / hw;
-    const int r = i - d * hw;
-    const int h = r / W;
-    const int w = r - h * W;
-    const float p = expf(to_float(xc[i]) - m) * inv_s;
-    const float dev = g_w * (static_cast<float>(w) - e_w) +
-                      g_h * (static_cast<float>(h) - e_h) +
-                      g_d * (static_cast<float>(d) - e_d);
-    store(dxc + i, p * dev);
+  const T* xc = x + cell * rows * W;
+  T* dxc = dx + cell * rows * W;
+
+  for (int c = tx; c < vpr; c += tpr) {
+    float tw[N];  // the column terms g_w/W (w - E_w), fixed along a column
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      tw[i] = g_w * (static_cast<float>(c * N + i) - e_w);
+    int r = row0 + ty;
+    int d = r / H;
+    int h = r - d * H;
+    for (; r < row1; r += kBwdUnroll * rpp) {
+      float v[kBwdUnroll][N];
+#pragma unroll
+      for (int k = 0; k < kBwdUnroll; ++k)
+        if (r + k * rpp < row1)
+          load_logits(xc + static_cast<size_t>(r + k * rpp) * W + c * N,
+                      v[k]);
+#pragma unroll
+      for (int k = 0; k < kBwdUnroll; ++k) {
+        if (r + k * rpp < row1) {
+          // the row term g_h/H (h - E_h) + g_d/D (d - E_d), once a row
+          const float tr = g_h * (static_cast<float>(h) - e_h) +
+                           g_d * (static_cast<float>(d) - e_d);
+          float o[N];
+#pragma unroll
+          for (int i = 0; i < N; ++i)
+            o[i] = expf(v[k][i] - m) * inv_s * (tw[i] + tr);
+          store_values(dxc + static_cast<size_t>(r + k * rpp) * W + c * N, o);
+        }
+        h += dh;
+        d += dd;
+        if (h >= H) {
+          h -= H;
+          ++d;
+        }
+      }
+    }
   }
 }
 
@@ -360,27 +427,46 @@ extern "C" int soft_argmax_3d_fwd(const void* x, int is_bf16, int vec, int bk,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int N>
+static cudaError_t launch_bwd(const void* x, int bk, int D, int H, int W,
+                              int splits, int rows_per_split, const float* ex,
+                              const float* stats, const float* g, void* dx,
+                              cudaStream_t s) {
+  int tpr = 1;  // threads a row: a power of two covering the row's vectors
+  while (tpr < W / N && tpr < kThreads) tpr <<= 1;
+  soft_argmax_3d_bwd_kernel<T, N><<<dim3(bk, splits), kThreads, 0, s>>>(
+      static_cast<const T*>(x), ex, stats, g, D, H, W, rows_per_split, tpr,
+      static_cast<T*>(dx));
+  return cudaGetLastError();
+}
+
 // x, dx: (bk, D, H, W) contiguous, both float32 (is_bf16 = 0) or both
-// bfloat16 (1). ex, g: (bk, 3) and stats: (bk, 2), float32, contiguous.
-// bk must be at most 65535 (the grid's y limit). Launches on `stream` of
-// `device` and returns cudaGetLastError().
-extern "C" int soft_argmax_3d_bwd(const void* x, int is_bf16, int bk, int D,
-                                  int H, int W, const float* ex,
+// bfloat16 (1); vec = 1 takes 16-byte loads and stores, and then x and dx
+// must be 16-byte aligned and a row of W logits a multiple of 16 bytes.
+// splits * rows_per_split covers the D*H rows of a cell, splits at most
+// 65535. ex, g: (bk, 3) and stats: (bk, 2), float32, contiguous. Launches
+// on `stream` of `device` and returns cudaGetLastError().
+extern "C" int soft_argmax_3d_bwd(const void* x, int is_bf16, int vec, int bk,
+                                  int D, int H, int W, int splits,
+                                  int rows_per_split, const float* ex,
                                   const float* stats, const float* g,
                                   void* dx, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n = D * H * W;
-  const dim3 grid((n + kChunk - 1) / kChunk, bk);
   if (is_bf16) {
-    soft_argmax_3d_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), ex, stats, g, D, H, W,
-        static_cast<__nv_bfloat16*>(dx));
+    err = vec ? launch_bwd<__nv_bfloat16, kVec<__nv_bfloat16>>(
+                    x, bk, D, H, W, splits, rows_per_split, ex, stats, g, dx,
+                    s)
+              : launch_bwd<__nv_bfloat16, 1>(x, bk, D, H, W, splits,
+                                             rows_per_split, ex, stats, g, dx,
+                                             s);
   } else {
-    soft_argmax_3d_bwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), ex, stats, g, D, H, W,
-        static_cast<float*>(dx));
+    err = vec ? launch_bwd<float, kVec<float>>(x, bk, D, H, W, splits,
+                                               rows_per_split, ex, stats, g,
+                                               dx, s)
+              : launch_bwd<float, 1>(x, bk, D, H, W, splits, rows_per_split,
+                                     ex, stats, g, dx, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

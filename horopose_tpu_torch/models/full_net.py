@@ -35,7 +35,7 @@ _RESNETS = ("resnet", "resnet18", "resnet34", "resnet50", "resnet101")
 # "hrnet"/"hrnet32" -> w32; "hrnet48" -> w48
 _HRNETS = ("hrnet", "hrnet32", "hrnet48")
 
-_UNPORTED = ("not ported yet (ROADMAP queue 1 item 3: the non-flagship "
+_UNPORTED = ("not ported yet (ROADMAP queue 1 item 5: the non-flagship "
              "FullNet flags)")
 
 

@@ -5,14 +5,15 @@
 without bias, x (B, H, W, C) NHWC and w (3, 3, C, F) HWIO -> (B, H, W, F),
 float32 or bfloat16 with float32 accumulation. It computes the convolution
 directly; the Pallas kernel's space-to-depth packing served the TPU's
-128-lane MXU. bfloat16 runs an implicit GEMM on the tensor cores
-(mma.sync): a persistent grid of `plan_blocks` blocks walks tiles of
-TILE_ROWS x TILE_COLS output pixels of one image and TILE_F output
-channels (`tile_origin`), with a ring of three halo buffers and resident
-weights in shared memory. float32 keeps a direct kernel on the float32 units (8x16
-pixels and 32 output channels a block). At the HRNet branch-0 shape
-(128, 64, 64, 32) -> 32 in bf16 it is bound by 67.1 MB of input and output,
-0.020 ms at 3.35 TB/s.
+128-lane MXU. Both dtypes walk the same tiles of TILE_ROWS x TILE_COLS
+output pixels of one image and TILE_F output channels (`tile_origin`) on a
+persistent grid of `plan_blocks` blocks, each staging its next steps' inputs
+with cp.async while it computes. bfloat16 runs an implicit GEMM on the
+tensor cores (mma.sync), one block an SM; at the HRNet branch-0 shape
+(128, 64, 64, 32) -> 32 it is bound by 67.1 MB of input and output, 0.020
+ms at 3.35 TB/s. float32 runs FFMA register tiles (2 rows x 8 pixels x 8
+output channels a thread), two blocks an SM, bound by the 67 TFLOP/s of
+the float32 units, 0.144 ms at that shape.
 
 A CPU tensor takes the plain version (`ops.conv3x3.conv3x3_s2d_plain`).
 A CUDA tensor always takes the kernel or raises.
@@ -31,16 +32,17 @@ SOURCE = "conv3x3"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w, is_bf16, B, H, W, C, F, blocks, y, stream, device
 _ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I]
-# the float32 grid puts the image on blockIdx.z
-_MAX_BATCH = 65535
-# the bfloat16 kernel's tile (csrc/conv3x3.cu: kRows, kCols, kN)
+# both kernels' tile (csrc/conv3x3.cu: kRows, kCols, kN and kFRows,
+# kFCols, kFN)
 TILE_ROWS, TILE_COLS, TILE_F = 8, 64, 32
-# persistent bfloat16 blocks an SM: each takes 222 KB of shared memory
+# persistent blocks an SM: a bfloat16 block takes 222 KB of shared memory,
+# a float32 one 99 KB and 128 threads of 255 registers
 BLOCKS_PER_SM = 1
+F32_BLOCKS_PER_SM = 2
 
 
 def conv_tiles(B: int, H: int, W: int, Fo: int) -> int:
-    """Output tiles of the bfloat16 kernel."""
+    """Output tiles of either kernel."""
     return (-(-Fo // TILE_F) * B * -(-H // TILE_ROWS)
             * -(-W // TILE_COLS))
 
@@ -57,10 +59,12 @@ def tile_origin(t: int, B: int, H: int, W: int) -> Tuple[int, int, int, int]:
             (rt % tiles_w) * TILE_COLS)
 
 
-def plan_blocks(n_tiles: int, sm_count: int) -> int:
-    """Persistent blocks of the bfloat16 kernel; block i takes tiles i,
+def plan_blocks(n_tiles: int, sm_count: int,
+                per_sm: int = BLOCKS_PER_SM) -> int:
+    """Persistent blocks, `per_sm` an SM at most (BLOCKS_PER_SM for
+    bfloat16, F32_BLOCKS_PER_SM for float32); block i takes tiles i,
     i + blocks, i + 2 * blocks, ..."""
-    return max(1, min(n_tiles, BLOCKS_PER_SM * sm_count))
+    return max(1, min(n_tiles, per_sm * sm_count))
 
 
 def _function():
@@ -98,16 +102,16 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name} wants even H and W, got {H}x{W}")
     Fo = w.shape[3]
     bf16 = x.dtype == torch.bfloat16
-    if (B > _MAX_BATCH or max(H, W, C, Fo) >= 2 ** 31
-            or (bf16 and conv_tiles(B, H, W, Fo) >= 2 ** 31)):
+    if max(H, W, C, Fo) >= 2 ** 31 or conv_tiles(B, H, W, Fo) >= 2 ** 31:
         raise ValueError(f"{name}: unsupported shape {tuple(x.shape)} -> "
                          f"{Fo} channels")
     w = w.to(x.dtype).contiguous()
     y = torch.empty(B, H, W, Fo, dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    blocks = (plan_blocks(conv_tiles(B, H, W, Fo),
-                          cuda_build.sm_count(x.device.index)) if bf16 else 0)
+    blocks = plan_blocks(conv_tiles(B, H, W, Fo),
+                         cuda_build.sm_count(x.device.index),
+                         BLOCKS_PER_SM if bf16 else F32_BLOCKS_PER_SM)
     err = _function()(
         x.data_ptr(), w.data_ptr(), int(bf16), B, H, W, C, Fo, blocks,
         y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,

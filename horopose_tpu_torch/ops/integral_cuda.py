@@ -18,8 +18,11 @@ splits. A base pointer off 16 bytes, or a row that is not a whole number of
 dx = exp(x - m) / s * sum_axis g_axis / dim_axis * (idx_axis - E_axis), in
 the logits' dtype. With the forward's (m, s) it is one elementwise pass,
 bound by one read of x and one write of dx (0.140 ms in bf16 at the
-training shape, 64 x 7 cells of 64^3, at 3.35 TB/s). Design: a 2-D grid of
-(chunks of 2048 logits) x cells, 256 threads a block.
+training shape, 64 x 7 cells of 64^3, at 3.35 TB/s). Design: the forward's
+grid (`plan_splits`) and walk along W-rows in 16-byte vectors, with the
+column term of g_w computed once a column and the row term of g_h and g_d
+once a row, so a logit costs an exp and a few float32 operations, and
+`vector_loads` of x and of dx choose 16-byte or scalar access.
 
 A CPU tensor takes the plain version (`ops.integral.soft_argmax_3d_*_plain`).
 A CUDA tensor always takes the kernel or raises.
@@ -41,13 +44,14 @@ _ARGTYPES = {
     # ex, stats, stream, device
     "soft_argmax_3d_fwd": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _P, _P, _I],
-    # x, is_bf16, bk, D, H, W, ex, stats, g, dx, stream, device
-    "soft_argmax_3d_bwd": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I],
+    # x, is_bf16, vec, bk, D, H, W, splits, rows_per_split, ex, stats, g,
+    # dx, stream, device
+    "soft_argmax_3d_bwd": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _P, _P, _I],
 }
-# the backward's grid puts the cell on blockIdx.y, the forward's the split
-_MAX_BWD_CELLS = 65535
+# both kernels put the split on blockIdx.y
 _MAX_SPLITS = 65535
-# the forward splits cells until the grid has this many blocks an SM
+# both kernels split cells until the grid has this many blocks an SM
 BLOCKS_PER_SM = 4
 
 
@@ -62,8 +66,9 @@ def plan_splits(bk: int, rows: int, sm_count: int) -> Tuple[int, int]:
 
 
 def vector_loads(data_ptr: int, W: int, element_size: int) -> bool:
-    """Whether the forward may read 16-byte vectors: the base is 16-byte
-    aligned and a row of W logits is a whole number of vectors."""
+    """Whether a kernel may read (or write) 16-byte vectors at data_ptr:
+    the base is 16-byte aligned and a row of W logits is a whole number of
+    vectors."""
     return data_ptr % 16 == 0 and (W * element_size) % 16 == 0
 
 
@@ -149,15 +154,16 @@ def soft_argmax_3d_bwd(x: torch.Tensor, ex: torch.Tensor,
     _check_rows(name, "stats", stats, x, 2)
     _check_rows(name, "g", g, x, 3)
     BK, D, H, W = x.shape
-    if BK > _MAX_BWD_CELLS:
-        raise ValueError(f"{name}: at most {_MAX_BWD_CELLS} cells, got {BK}")
     dx = torch.empty_like(x)
     if BK == 0:
         return dx
+    splits, per = plan_splits(BK, D * H, cuda_build.sm_count(x.device.index))
+    vec = (vector_loads(x.data_ptr(), W, x.element_size())
+           and vector_loads(dx.data_ptr(), W, dx.element_size()))
     err = _function(name)(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), BK, D, H, W,
-        ex.data_ptr(), stats.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        _stream(x), x.device.index)
+        x.data_ptr(), int(x.dtype == torch.bfloat16), int(vec), BK, D, H, W,
+        splits, per, ex.data_ptr(), stats.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), _stream(x), x.device.index)
     soft_argmax_3d_bwd.launches += 1
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

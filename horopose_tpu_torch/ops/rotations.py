@@ -78,7 +78,7 @@ def rot_to_rotmat(rot: torch.Tensor) -> torch.Tensor:
         return quat_to_rotmat(rot)
     if d == 9:
         raise NotImplementedError(
-            "rot9d is not ported yet (ROADMAP queue 1 item 3: "
+            "rot9d is not ported yet (ROADMAP queue 1 item 5: "
             "the non-flagship FullNet flags)")
     raise ValueError(f"unsupported rotation dim {d}")
 
@@ -91,5 +91,5 @@ def rotmat_to_rot(matrix: torch.Tensor, dim: int) -> torch.Tensor:
     if dim == 4:
         raise NotImplementedError(
             "quaternion-from-matrix is not ported yet (ROADMAP queue 1 "
-            "item 3: the non-flagship FullNet flags)")
+            "item 5: the non-flagship FullNet flags)")
     raise ValueError(f"unsupported rotation dim {dim}")

@@ -6,8 +6,8 @@ the config, run epochs of train steps, validate each test set (the
 lowest-depth-error checkpoint per dataset with the epoch-regression guard,
 and resume from an experiment's checkpoint.
 
-The DREAM data loaders are not ported yet (ROADMAP queue 1 item 2), so the
-caller passes its loaders: {"train": a sized iterable of batches, "test":
+The DREAM data loaders are not ported yet (ROADMAP queue 1 items 2-3), so
+the caller passes its loaders: {"train": a sized iterable of batches, "test":
 {dataset name: an iterable of batches}}, each batch a dict of tensors on
 the training device in the JAX `DataLoader`'s layout (`core.engine.
 batch_to_torch`, `data.synthetic.synthetic_dream_batch`). Batches are not
@@ -59,7 +59,7 @@ def train_depthnet(cfg, loaders: Optional[Mapping] = None,
     if loaders is None:
         raise NotImplementedError(
             "the DREAM data loaders are not ported yet (ROADMAP queue 1 "
-            "item 2); pass loaders={'train': ..., 'test': {name: ...}}")
+            "items 2-3); pass loaders={'train': ..., 'test': {name: ...}}")
     if cfg.get("backbone_pretrained"):
         raise NotImplementedError("backbone_pretrained: loading ImageNet "
                                   "backbone weights is not ported yet "

@@ -3,7 +3,7 @@
 Port of the `pretrained_rootnet` branch of
 `horopose_tpu/pipelines/train_full.py::init_fullnet_state` (:66-91). The
 rest of that pipeline (the epoch loop, the validation battery, the
-best-AUC checkpoints) is ROADMAP queue 1 item 2.
+best-AUC checkpoints) is ROADMAP queue 1 item 3.
 """
 
 from __future__ import annotations

@@ -145,18 +145,21 @@ def test_bound_counts_bytes_and_operations():
     assert ms == pytest.approx(2 * 128 * 64 * 64 * 9 * 32 * 32 / 67e12 * 1e3)
 
 
+@pytest.mark.parametrize("per_sm", [conv3x3_cuda.BLOCKS_PER_SM,
+                                    conv3x3_cuda.F32_BLOCKS_PER_SM])
 @pytest.mark.parametrize("H,W,Fo", [(64, 64, 32), (10, 14, 7), (6, 6, 48),
                                     (2, 130, 33)])
-def test_conv_tiles_cover_every_output_once(H, W, Fo):
-    """The bf16 kernel's persistent blocks, each walking tiles i, i +
-    blocks, ..., write every output (b, y, x, f) exactly once, for 1 to
-    1024 images and ragged H, W and F."""
+def test_conv_tiles_cover_every_output_once(H, W, Fo, per_sm):
+    """Either kernel's persistent blocks (one an SM in bf16, two in
+    float32), each walking tiles i, i + blocks, ..., write every output
+    (b, y, x, f) exactly once, for 1 to 1024 images and ragged H, W and
+    F."""
     from horopose_tpu_torch.ops.conv3x3_cuda import (TILE_COLS, TILE_F,
                                                      TILE_ROWS, conv_tiles,
                                                      plan_blocks, tile_origin)
     for B in ((1, 2, 5) if H * W > 1000 else (1, 2, 5, 128, 1024)):
         n = conv_tiles(B, H, W, Fo)
-        blocks = plan_blocks(n, 132)
+        blocks = plan_blocks(n, 132, per_sm)
         cover = np.zeros((B, H, W, Fo), np.int32)
         for block in range(blocks):
             for t in range(block, n, blocks):
@@ -200,3 +203,65 @@ def test_card_check_at_a_ragged_shape(dtype, rng):
                     ("halo off by one", conv3x3_s2d_plain(shifted, w))):
         with pytest.raises(AssertionError):
             chip_smoke.compare_conv(y, y_plain, y_lib, name)
+
+
+# csrc/conv3x3.cu's float32 kernel: kFK input channels a staged chunk, a
+# patch of (TILE_ROWS + 2) x (TILE_COLS + 2) pixels
+F32_CHUNK = 8
+
+
+def _f32_tile_mirror(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain mirror of the float32 kernel: for every tile (`tile_origin`)
+    and chunk of F32_CHUNK input channels, the zero-filled patch and weight
+    slab it stages (zeros outside the image, past C and past F), each
+    output row's 8-pixel segments taking all three kx taps from one row of
+    the patch, float32 sums over the chunks, and the write-back masked to
+    the image and to F."""
+    from horopose_tpu_torch.ops.conv3x3_cuda import (TILE_COLS, TILE_F,
+                                                     TILE_ROWS, conv_tiles,
+                                                     tile_origin)
+    B, H, W, C = x.shape
+    Fo = w.shape[3]
+    xp = F.pad(x.float(), (0, 0, 1, TILE_COLS + 1, 1, TILE_ROWS + 1))
+    y = torch.full((B, H, W, Fo), float("nan"))
+    for t in range(conv_tiles(B, H, W, Fo)):
+        fc, b, oy0, ox0 = tile_origin(t, B, H, W)
+        f0 = fc * TILE_F
+        acc = torch.zeros(TILE_ROWS, TILE_COLS, TILE_F)
+        for c0 in range(0, C, F32_CHUNK):
+            patch = torch.zeros(TILE_ROWS + 2, TILE_COLS + 2, F32_CHUNK)
+            got = xp[b, oy0:oy0 + TILE_ROWS + 2, ox0:ox0 + TILE_COLS + 2,
+                     c0:c0 + F32_CHUNK]
+            patch[:, :, :got.shape[2]] = got
+            slab = torch.zeros(3, 3, F32_CHUNK, TILE_F)
+            part = w[:, :, c0:c0 + F32_CHUNK, f0:f0 + TILE_F].float()
+            slab[:, :, :part.shape[2], :part.shape[3]] = part
+            for ky in range(3):
+                seg = patch[ky:ky + TILE_ROWS]      # the rows of this ky
+                for kx in range(3):
+                    acc += seg[:, kx:kx + TILE_COLS] @ slab[ky, kx]
+        rows, cols = min(TILE_ROWS, H - oy0), min(TILE_COLS, W - ox0)
+        fs = min(TILE_F, Fo - f0)
+        y[b, oy0:oy0 + rows, ox0:ox0 + cols, f0:f0 + fs] = \
+            acc[:rows, :cols, :fs]
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("shape", [*SHAPES, (3, 10, 14, 5, 7),
+                                   (2, 6, 6, 32, 48), (1, 8, 8, 20, 16),
+                                   (1, 10, 66, 3, 33)])
+def test_f32_tile_mirror_matches_plain_and_pallas(shape, rng):
+    """The float32 kernel's tiles, chunks and zero fills, mirrored, pass
+    the card's own check against the plain version and float64 F.conv2d
+    (`chip_smoke.compare_conv`, CONV_F32_REL of max |y|) and agree with
+    the Pallas kernel (interpret mode) at F32_TOL, at ragged C (5, 20, 3),
+    F (7, 48, 33) and H, W past one tile (10 rows, 66 columns)."""
+    x, w = _inputs(rng, shape)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    y = _f32_tile_mirror(xt, wt)
+    errs = chip_smoke.compare_conv(y, conv3x3_s2d_plain(xt, wt),
+                                   _lib(xt, wt).float(), f"mirror {shape}")
+    assert errs["n_over_tol"] == 0
+    ref = np.asarray(conv3x3_s2d_pallas(jnp.asarray(x), jnp.asarray(w),
+                                        block_b=1))
+    np.testing.assert_allclose(y.numpy(), ref, rtol=F32_TOL, atol=F32_TOL)

@@ -228,10 +228,10 @@ def test_prepare_gt_matches_jax(bbox, joint_mask, ref_kp, np_batch, robots):
 def test_prepare_gt_rejects_unported_options(np_batch, robots):
     _, cfg = _cfgs()
     batch = TE.batch_to_torch(np_batch, "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         TE.prepare_gt(cfg, robots[1], batch, pnp_fn=lambda *a: None)
     _, cfg4 = _cfgs(rotation_dim=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         TE.prepare_gt(cfg4, robots[1], batch)
 
 
@@ -283,7 +283,7 @@ def test_compute_full_losses_matches_jax(variant, row_mask, np_batch, robots,
 def test_compute_full_losses_rejects_multi_kp():
     """A multi_kp head's per-keypoint depths have no loss in the port yet."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         TE.compute_full_losses(cfg, {"depths": torch.zeros(B, 7)}, {}, None)
 
 

@@ -471,3 +471,149 @@ def test_timing_ring_exceeds_l2_and_slices_in_order():
     pairs = ring_slices((big, big[:, 0]), 2)
     assert len(pairs) == 2 and torch.equal(pairs[1][1], torch.tensor([6, 8,
                                                                       10]))
+
+
+# ---- the backward's walk: a plain mirror of the kernel's arithmetic ----
+
+_THREADS, _UNROLL = 256, 8        # csrc/soft_argmax.cu: kThreads, kBwdUnroll
+
+
+def _kernel_walk(D, H, W, N, splits, per):
+    """The vectors one cell's blocks visit, as the backward kernel walks
+    them: split (blockIdx.y) takes rows [split * per, ...), tpr threads a
+    row, each thread its columns tx, tx + tpr, ... and rows row0 + ty,
+    + rpp, ..., kUnroll rows at a time, (d, h) advanced by a constant step.
+    Yields (row, d, h, first column) per vector."""
+    vpr = W // N
+    tpr = 1
+    while tpr < vpr and tpr < _THREADS:
+        tpr <<= 1
+    rpp = _THREADS // tpr
+    dd, dh = divmod(rpp, H)
+    for split in range(splits):
+        row0, row1 = split * per, min((split + 1) * per, D * H)
+        for tid in range(_THREADS):
+            tx, ty = tid % tpr, tid // tpr
+            for c in range(tx, vpr, tpr):
+                r = row0 + ty
+                d, h = divmod(r, H)
+                while r < row1:
+                    for k in range(_UNROLL):
+                        if r + k * rpp < row1:
+                            yield r + k * rpp, d, h, c * N
+                        h, d = h + dh, d + dd
+                        if h >= H:
+                            h, d = h - H, d + 1
+                    r += _UNROLL * rpp
+
+
+def _vector_backward(x, ex, stats, g, splits=None, vec=True):
+    """Plain mirror of the backward kernel in float32: the vectors of
+    `_kernel_walk` (16-byte vectors when `vector_loads` allows them and
+    `vec`, else the scalar path's one logit a vector), each with its
+    column terms g_w/W (w - E_w) and its row's hoisted term g_h/H (h -
+    E_h) + g_d/D (d - E_d), dx = exp(x - m) * (1/s) * (column + row term),
+    rounded once to x's dtype. Also checks that every logit is written
+    once, at the (d, h) its row stands for."""
+    BK, D, H, W = x.shape
+    rows = D * H
+    if splits is None:
+        splits, per = integral_cuda.plan_splits(BK, rows, 132)
+    else:
+        per = -(-rows // splits)
+        splits = -(-rows // per)
+    N = (16 // x.element_size()
+         if vec and integral_cuda.vector_loads(0, W, x.element_size()) else 1)
+    xf = x.float()
+    m, inv_s = stats[:, 0], 1.0 / stats[:, 1]
+    g_w, g_h, g_d = g[:, 0] / W, g[:, 1] / H, g[:, 2] / D
+    tw = g_w[:, None] * (torch.arange(W, dtype=torch.float32)[None]
+                         - ex[:, 0, None])
+    dx = torch.full((BK, D, H, W), float("nan"))
+    seen = np.zeros((D, H, W), np.int64)
+    for r, d, h, w0 in _kernel_walk(D, H, W, N, splits, per):
+        assert (d, h) == divmod(r, H)
+        seen[d, h, w0:w0 + N] += 1
+        tr = g_h * (h - ex[:, 1]) + g_d * (d - ex[:, 2])
+        p = torch.exp(xf[:, d, h, w0:w0 + N] - m[:, None]) * inv_s[:, None]
+        dx[:, d, h, w0:w0 + N] = p * (tw[:, w0:w0 + N] + tr[:, None])
+    assert (seen == 1).all()
+    return dx.to(x.dtype)
+
+
+# D != H != W; W = 9 takes the scalar path in both dtypes, W = 8 and 16
+# whole 16-byte vectors (2 or 1 a row in float32, 1 in bf16)
+WALK_SHAPES = [(2, 3, 5, 7, 9), (1, 2, 4, 6, 8), (2, 2, 3, 5, 16)]
+
+
+def _walk_inputs(shape, dtype, rng):
+    """Logits 3 * N(0, 1) in `dtype` with a row of -inf in the first cell,
+    g ~ N(0, 1), and the plain forward's E and (m, s)."""
+    B, K, D, H, W = shape
+    logits = (rng.randn(B * K, D, H, W) * 3).astype(np.float32)
+    logits[0, 1, 0] = -np.inf
+    x = _t(logits).to(dtype)
+    g = _t(rng.randn(B * K, 3).astype(np.float32))
+    _, e, stats = TI.soft_argmax_3d_fwd_plain(x)
+    return x, g, e, stats
+
+
+@pytest.mark.parametrize("splits", [1, 3, "rows", None])
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_vector_backward_mirror_matches_pallas_grad_and_plain(shape, splits,
+                                                              rng):
+    """float32 logits: the mirror against jax.grad through the Pallas
+    kernel (interpret mode) and the plain jnp soft-argmax at GRAD_ATOL,
+    and against `soft_argmax_3d_bwd_plain` (the same operations in another
+    order: a few float32 roundings of terms up to ~1, so within 1e-6),
+    with the scalar path forced too. splits None takes `plan_splits`'s."""
+    B, K, D, H, W = shape
+    x, g, e, stats = _walk_inputs(shape, torch.float32, rng)
+    n = D * H if splits == "rows" else splits
+    ref_plain, ref_pallas = _jax_grads(x.numpy().reshape(B, K, -1),
+                                       g.numpy().reshape(B, K, 3), D, H, W)
+    plain = TI.soft_argmax_3d_bwd_plain(x, e, stats, g)
+    assert float(plain[0, 1, 0].abs().max()) == 0.0
+    for vec in (True, False):
+        dx = _vector_backward(x, e, stats, g, n, vec)
+        assert float(dx[0, 1, 0].abs().max()) == 0.0    # exactly, at -inf
+        got = dx.numpy().reshape(B, K, -1)
+        np.testing.assert_allclose(got, ref_pallas, atol=GRAD_ATOL)
+        np.testing.assert_allclose(got, ref_plain, atol=GRAD_ATOL)
+        np.testing.assert_allclose(dx.numpy(), plain.numpy(), atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_vector_backward_mirror_in_bf16_passes_the_card_check(shape, rng):
+    """bf16 logits: the mirror's bf16 dx against the plain version's under
+    the card's own check (`chip_smoke.compare_dx`: DX_TERMS_RTOL of the
+    terms plus one bf16 ulp of the entry, exactly 0 at -inf), and its
+    float32 arithmetic on the same bf16 values against jax.grad through
+    the Pallas kernel at GRAD_ATOL."""
+    import chip_smoke
+    B, K, D, H, W = shape
+    x, g, e, stats = _walk_inputs(shape, torch.bfloat16, rng)
+    dx = _vector_backward(x, e, stats, g)
+    assert dx.dtype == torch.bfloat16
+    plain = TI.soft_argmax_3d_bwd_plain(x, e, stats, g)
+    chip_smoke.compare_dx(x, e, stats, g, dx, plain, f"mirror {shape}")
+    _, ref_pallas = _jax_grads(x.float().numpy().reshape(B, K, -1),
+                               g.numpy().reshape(B, K, 3), D, H, W)
+    dx32 = _vector_backward(x.float(), e, stats, g)
+    np.testing.assert_allclose(dx32.numpy().reshape(B, K, -1), ref_pallas,
+                               atol=GRAD_ATOL)
+
+
+def test_card_check_of_dx_fails_a_wrong_index_walk(rng):
+    """compare_dx catches a walk that is one row off in h, or one that
+    takes g_h for g_d and g_d for g_h, at the mirror's own inputs."""
+    import chip_smoke
+    x, g, e, stats = _walk_inputs((2, 3, 5, 7, 9), torch.float32, rng)
+    dx = _vector_backward(x, e, stats, g)
+    chip_smoke.compare_dx(x, e, stats, g, dx, dx, "same")
+    wrong_h = torch.cat([dx[:, :, 1:], dx[:, :, :1]], 2)
+    swapped = _vector_backward(x, e, stats, g[:, [0, 2, 1]])
+    for name, bad in (("h off by one", wrong_h),
+                      ("g_h and g_d swapped", swapped)):
+        with pytest.raises(AssertionError):
+            chip_smoke.compare_dx(x, e, stats, g, bad, dx, name)

@@ -239,7 +239,7 @@ def _tiny_cfg(**overrides):
 
 
 def test_train_depthnet_needs_loaders():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 items 2-3"):
         train_depthnet(_tiny_cfg(), device="cpu")
 
 
