@@ -7,8 +7,9 @@ toolkit:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
-  1. the card: its name and power limit (nvidia-smi), and what a data
-     path could use on the machine (PIL, yaml, cv2, libjpeg's header);
+  1. the card: its name and power limit (nvidia-smi), and what the data
+     path and a flax-checkpoint reader could use on the machine (PIL,
+     yaml, cv2, msgpack, libjpeg's header);
   2. build every hand-written kernel from `horopose_tpu_torch/csrc/` with
      nvcc for sm_90a, one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
@@ -55,12 +56,27 @@ Phases, each of which raises on failure:
      `pipelines.train_full.init_fullnet_state`) that takes two steps with
      both soft-argmax kernels; one float32 DepthNet step on the card
      against the CPU at b=2, TF32 off;
+  9. stage 2 from files at full width: the port's DREAM writer puts a
+     384-frame train set and a 150-frame test set of 480x640 JPEGs in a
+     temporary directory; the train loader of `configs/panda/full.yaml`
+     (its augmentations and loader workers) is timed alone for an epoch;
+     `pipelines.train_full.train_full` trains one epoch of 6 steps at
+     b=64 from them through pinned batches copied ahead on a side stream,
+     and validates the test set (64 + 64 + 22); the soft-argmax forward
+     must launch once a step and once a validation batch, the backward
+     once a step, and the best-AUC keeper must save exactly when the ADD
+     AUC is above 0; then the H2D time of one batch, a profiled step (its
+     idle share against the step time with the loader), a timed
+     validation, and `pipelines.test.test_network` at b=128 (128 + 22
+     padded) from the trained weights, whose summary.txt must hold every
+     field; it launches the forward once a batch and once a timed
+     forward of `measure_forward_fps`;
   7. one JSON line describing every kernel, and as the last line
      {"ok": true, "device": {...}}.
 
-They run in the order 1-5, 8, 6, 7: phase 8's timed runs keep cuDNN's
-default TF32 for float32, as phases 4 and 5 do, and its b=2 comparison
-runs with phase 6's. Each path's kernel launch counts are set to 0 just
+They run in the order 1-5, 8, 9, 6, 7: phases 8 and 9 keep cuDNN's
+default TF32 for float32, as phases 4 and 5 do, and phase 8's b=2
+comparison runs with phase 6's. Each path's kernel launch counts are set to 0 just
 before it and read just after it; launches made to compare a kernel with
 its plain version are not counted.
 
@@ -132,6 +148,14 @@ STEPS_PER_EPOCH = 104950 // 64
 STAGE1_CONFIG = os.path.join("configs", "panda", "depthnet.yaml")
 STAGE2_CONFIG = os.path.join("configs", "panda", "full.yaml")
 STAGE1_STEPS, STAGE1_WARMUP, STAGE1_VAL_BATCHES = 12, 2, 2
+# phase 9: DREAM-layout sets written from a seed, 480x640 noise JPEGs; the
+# train set is one epoch of 6 steps at b=64, the test set 150 frames, so
+# its last batch is partial at b=64 (64 + 64 + 22) and at b=128 (128 + 22)
+STAGE2_TRAIN_FRAMES, STAGE2_TEST_FRAMES, TEST_BATCH = 384, 150, 128
+# test_network's forward timing (pipelines/test.py::measure_forward_fps,
+# 10 calls after one warm-up): "all" and "other" each launch the
+# soft-argmax forward once a call
+FPS_ITERS = 10
 # libjpeg's header, which the JAX package's native decoder builds against
 JPEG_HEADER = "/usr/include/jpeglib.h"
 
@@ -654,6 +678,15 @@ def train(cfg, sd, batch, device, card, warmup: int = 2, reps: int = 10):
     return timings, steps
 
 
+def device_events(prof) -> list:
+    """A trace's device-side events, without the user-annotated ranges
+    (such as Optimizer.step) that span the kernels they launch."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
+
+
 def train_breakdown(run_step, label: str, step_ms: float, card: str,
                     record_shapes: bool = False,
                     named=("soft_argmax_3d_fwd", "soft_argmax_3d_bwd")):
@@ -669,12 +702,7 @@ def train_breakdown(run_step, label: str, step_ms: float, card: str,
         run_step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side events only, and not the user-annotated ranges (such as
-    # Optimizer.step) that span the kernels they launch
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not e.key.startswith("Optimizer.")]
+    events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
 
     def kernel_ms(name):
@@ -771,25 +799,36 @@ def compare_train_card_cpu(cfg, device, seed: int):
 
 
 class TimedLoader:
-    """Device batches as a sized loader whose iteration stamps the host
-    clock, after a synchronise, before each batch and after the last: the
-    gaps are the consumer's step times."""
+    """A sized loader around `source` (a list of batches or a loader)
+    whose iteration synchronises the card and stamps the host clock before
+    each request for a batch, the final one that ends the pass included,
+    and records how long each request waited. With no prefetch the gaps
+    are the consumer's step times; under `prefetch_to_device` of depth p
+    the gap between requests k and k + 1 (k >= p) is one train step as the
+    loop sees it: the wait for a batch, its copy and the step."""
 
-    def __init__(self, batches):
-        self.batches = batches
-        self.stamps = []
+    def __init__(self, source):
+        self.source = source
+        self.stamps, self.waits = [], []
 
     def __len__(self):
-        return len(self.batches)
+        return len(self.source)
 
     def __iter__(self):
-        self.stamps = []
-        for batch in self.batches:
+        self.stamps, self.waits = [], []
+        it = None
+        while True:
             torch.cuda.synchronize()
-            self.stamps.append(time.perf_counter())
+            t0 = time.perf_counter()
+            self.stamps.append(t0)
+            try:
+                if it is None:           # the epoch starts at its first request
+                    it = iter(self.source)
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
             yield batch
-        torch.cuda.synchronize()
-        self.stamps.append(time.perf_counter())
 
     def step_ms(self):
         return [1e3 * (b - a) for a, b in zip(self.stamps, self.stamps[1:])]
@@ -879,7 +918,7 @@ def stage1(cfg, device, dtype, card: str, exp_root: str) -> dict:
 
     step = build_depthnet_train_step(cfg, state.model, state.optimizer,
                                      state.scheduler)
-    prof = train_breakdown(lambda: step(loader.batches[0]),
+    prof = train_breakdown(lambda: step(loader.source[0]),
                            f"stage 1 {name} b={b}", ms, card,
                            record_shapes=True, named=())
     convs = branch0_conv_ms(prof, b)
@@ -962,6 +1001,221 @@ def compare_depthnet_card_cpu(cfg, device, seed: int):
                              "CPU")
 
 
+def write_dream_sets(base: str, card: str):
+    """The port's DREAM writer: panda train and test sets of 480x640 noise
+    JPEGs (quality 85) under base/synthetic/."""
+    from horopose_tpu_torch.tools.synth_dream import \
+        make_synthetic_dream_dataset
+    t0 = time.perf_counter()
+    train = make_synthetic_dream_dataset(base, "panda", STAGE2_TRAIN_FRAMES,
+                                         seed=SEED + 60, split="train_dr")
+    test = make_synthetic_dream_dataset(base, "panda", STAGE2_TEST_FRAMES,
+                                        seed=SEED + 61, split="test_dr")
+    mb = sum(os.path.getsize(os.path.join(d, f)) for d in (train, test)
+             for f in os.listdir(d)) / 2 ** 20
+    print(f"stage 2 from files: wrote {STAGE2_TRAIN_FRAMES} + "
+          f"{STAGE2_TEST_FRAMES} frames ({mb:.1f} MiB) in "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    return str(train), str(test)
+
+
+def time_loader(loader, card: str, epochs: int = 2) -> dict:
+    """`epochs` passes over `loader` alone, host clock; the last one (its
+    workers started by the first) is reported: images per second and ms
+    per batch over the whole pass, and each batch's arrival. Each worker
+    makes whole batches, so with as many batches as workers an epoch's
+    batches arrive together: the pass's rate, not the gaps, is the
+    loader's throughput."""
+    for _ in range(epochs):
+        stamps, rows = [time.perf_counter()], 0
+        for batch in loader:
+            stamps.append(time.perf_counter())
+            rows += int(batch["TCO"].shape[0])
+    wall_ms = 1e3 * (stamps[-1] - stamps[0])
+    gaps = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    out = dict(img_s=1e3 * rows / wall_ms, ms_per_batch=wall_ms / len(gaps),
+               batch_gaps_ms=gaps, images=rows, workers=loader.num_workers)
+    print(f"loader alone (pass {epochs}, workers started): {rows} images "
+          f"in {wall_ms:.1f} ms, {out['img_s']:.1f} img/s, "
+          f"{out['ms_per_batch']:.1f} ms per batch of {loader.batch_size}; "
+          f"arrival gaps {[round(g, 1) for g in gaps]} ms; "
+          f"{loader.num_workers} worker processes, host clock ({card})",
+          flush=True)
+    return out
+
+
+def h2d_ms(batch, device, reps: int = 5) -> tuple:
+    """(median ms, bytes) of one pinned batch's copy to the card on a side
+    stream, non_blocking, between CUDA events on that stream."""
+    from horopose_tpu_torch.parallel.prefetch import batch_tensors, to_device
+    tensors = batch_tensors(batch)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    if not all(t.is_pinned() for t in tensors):
+        raise AssertionError("the loader's batch is not pinned")
+    side = torch.cuda.Stream(device)
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record(side)
+            staged = to_device(batch, device, non_blocking=True)
+            end.record(side)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del staged
+    return statistics.median(times[1:]), nbytes
+
+
+def stage2_train(cfg, loaders, device, card: str, exp_root: str) -> dict:
+    """`train_full` for one epoch from the files (the caller resets the
+    launch counts around it): the step time with the loader and the
+    prefetch from TimedLoader, the host's wait per step, the scalars,
+    and the keeper's decision against the logged ADD AUC."""
+    from horopose_tpu_torch.pipelines.train_full import train_full
+    timed = TimedLoader(loaders["train"])
+    val = TimedLoader(loaders["test"]["dr"])
+    t0 = time.perf_counter()
+    state = train_full(cfg, {"train": timed, "test": {"dr": val}},
+                       max_epochs=1, device=device, exp_root=exp_root)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    ahead = int(cfg.prefetch_batches)
+    steps = timed.step_ms()[ahead:]      # gap k >= ahead holds step k - ahead
+    waits = [1e3 * w for w in timed.waits]
+    # the validation's first request synchronises after the last step: the
+    # train loop's wall time, the epoch's first wait for batches included
+    loop_ms = 1e3 * (val.stamps[0] - timed.stamps[0])
+    n_steps = len(timed)
+    folder = os.path.join(exp_root, cfg.exp_name)
+    with open(os.path.join(folder, "log", "scalars.jsonl"),
+              encoding="utf-8") as f:
+        scalars = {r["tag"]: r["value"] for r in map(json.loads, f)}
+    if len(scalars) < 54 or not all(np.isfinite(v)
+                                    for v in scalars.values()):
+        raise AssertionError(f"stage 2 from files: scalars {scalars}")
+    auc = scalars["Val/AUC_ADD_dr"]
+    ckpt = os.path.join(folder, "ckpt", "curr_best_auc(add)_model.pk")
+    if os.path.exists(ckpt) != (auc > 0.0):
+        raise AssertionError(f"the best-AUC keeper's decision: ADD AUC "
+                             f"{auc}, checkpoint on disk "
+                             f"{os.path.exists(ckpt)}")
+    ms = statistics.median(steps[1:])
+    print(f"stage 2 from files, float32 b={cfg.batch_size}: {ms:.3f} "
+          f"ms/step with the loader and the prefetch ({ahead} ahead), "
+          f"{1e3 * cfg.batch_size / ms:.1f} img/s (median of "
+          f"{len(steps) - 1} after the first; steps "
+          f"{[round(t, 1) for t in steps]}); the host waited "
+          f"{statistics.median(waits[1:]):.3f} ms per request for a batch "
+          f"after the first, which waited {waits[0]:.1f} ms (median; "
+          f"{[round(w, 1) for w in waits]}); the train loop took "
+          f"{loop_ms:.1f} ms, {loop_ms / n_steps:.3f} ms per step, "
+          f"{1e3 * n_steps * cfg.batch_size / loop_ms:.1f} img/s; epoch with "
+          f"its validation {epoch_s:.1f} s; {len(scalars)} scalars, "
+          f"Val/AUC_ADD_dr {auc}, Val/AUC_PCK_dr "
+          f"{scalars['Val/AUC_PCK_dr']}; best-AUC checkpoint "
+          f"{'written' if auc > 0 else 'not written (AUC 0)'} ({card})",
+          flush=True)
+    return dict(state=state, step_ms=ms, steps_ms=steps, wait_ms=waits,
+                loop_ms_per_step=loop_ms / n_steps, epoch_s=epoch_s, auc=auc,
+                ckpt=ckpt, folder=folder)
+
+
+def stage2_measure(cfg, run, loaders, device, card: str,
+                   synthetic_ms: float) -> dict:
+    """After the epoch: one pinned batch's copy to the card, one profiled
+    train step on a loader batch against the step time with the loader
+    (its device idle share), and a timed validation of the test set."""
+    from horopose_tpu_torch.core.engine import (build_full_eval_step,
+                                                build_full_train_step)
+    from horopose_tpu_torch.core.loggers import NullWriter
+    from horopose_tpu_torch.parallel.prefetch import (prefetch_to_device,
+                                                      to_device)
+    from horopose_tpu_torch.pipelines.common import FullNetConfig, make_robot
+    from horopose_tpu_torch.pipelines.train_full import validate_full
+    fcfg = FullNetConfig.from_cfg(cfg)
+    state, robot = run["state"], make_robot(fcfg, device=device)
+    host = next(iter(loaders["train"]))
+    copy_ms, nbytes = h2d_ms(host, device)
+    print(f"H2D of one pinned b={cfg.batch_size} batch on a side stream: "
+          f"{copy_ms:.3f} ms for {nbytes / 2 ** 20:.1f} MiB, "
+          f"{nbytes / copy_ms / 1e6:.2f} GB/s ({card})", flush=True)
+    batch = to_device(host, device)
+    step = build_full_train_step(fcfg, state.model, robot, state.optimizer,
+                                 state.scheduler)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    step(batch, gen)
+    prof = train_breakdown(lambda: step(batch, gen),
+                           f"stage 2 from files float32 b={cfg.batch_size}",
+                           run["step_ms"], card)
+    busy_ms = sum(e.self_device_time_total
+                  for e in device_events(prof)) / 1e3
+    print(f"stage 2 step at b={cfg.batch_size}, float32: "
+          f"{run['step_ms']:.3f} ms from files (loader, prefetch, copy; "
+          f"{run['loop_ms_per_step']:.3f} ms over the whole loop) against "
+          f"{synthetic_ms:.3f} ms on a batch already on the card (phase 5, "
+          f"same call) ({card})", flush=True)
+    eval_step = build_full_eval_step(fcfg, state.model, robot)
+    test_loader = loaders["test"]["dr"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    validate_full(fcfg, robot, eval_step,
+                  prefetch_to_device(test_loader, device,
+                                     int(cfg.prefetch_batches)),
+                  NullWriter(), 0, "dr")
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    print(f"validation of {STAGE2_TEST_FRAMES} frames at "
+          f"b={test_loader.batch_size} ({len(test_loader)} batches, the "
+          f"last partial): {val_s:.3f} s, {STAGE2_TEST_FRAMES / val_s:.1f} "
+          f"img/s, loader and metrics included ({card})", flush=True)
+    return dict(step_ms=run["step_ms"],
+                loop_ms_per_step=run["loop_ms_per_step"],
+                first_wait_ms=run["wait_ms"][0],
+                wait_ms=statistics.median(run["wait_ms"][1:]),
+                synthetic_step_ms=synthetic_ms, device_busy_ms=busy_ms,
+                idle_share=1 - busy_ms / run["step_ms"], h2d_ms=copy_ms,
+                h2d_bytes=nbytes, val_img_s=STAGE2_TEST_FRAMES / val_s)
+
+
+SUMMARY_NUMBERS = ("ADD/AUC", "PCK/AUC", "Runtime of rootnet",
+                   "Runtime of regression+integral", "Runtime of all", "FPS")
+
+
+def stage2_test(run, test_dir: str, device, card: str) -> dict:
+    """`test_network` at b=TEST_BATCH on the test set (128 + 22 padded)
+    from the trained weights, written as a weights-only checkpoint; its
+    summary.txt must hold every field."""
+    from horopose_tpu_torch.core.checkpoint import (TrainState,
+                                                    save_checkpoint_file)
+    from horopose_tpu_torch.pipelines import test as harness
+    weights = os.path.join(run["folder"], "ckpt", "trained_weights.pk")
+    save_checkpoint_file(weights, epoch=0, metric=run["auc"],
+                         state=TrainState(run["state"].model))
+    cfg = harness.make_test_cfg(run["folder"], test_dir)
+    t0 = time.perf_counter()
+    harness.test_network(cfg, ckpt_name=weights, batch_size=TEST_BATCH,
+                         device=device)
+    wall_s = time.perf_counter() - t0
+    with open(os.path.join(run["folder"], "result", "summary.txt"),
+              encoding="utf-8") as f:
+        lines = f.read().rstrip("\n").split("\n")
+    dof = 8
+    fields = dict(line.split(": ", 1) for line in lines if ": " in line)
+    if (len(lines) != 15 + 8 + 8 + dof + 8
+            or lines[2] != "This model was saved from epoch:0"
+            or not all(np.isfinite(float(fields[k]))
+                       for k in SUMMARY_NUMBERS)
+            or float(fields["Runtime of all"]) <= 0):
+        raise AssertionError(f"summary.txt: {lines}")
+    print(f"test_network b={TEST_BATCH}: {STAGE2_TEST_FRAMES} frames in "
+          f"{wall_s:.1f} s (model build, loader start, metrics and forward "
+          f"timing included); summary.txt {len(lines)} lines: "
+          + ", ".join(f"{k} {fields[k]}" for k in SUMMARY_NUMBERS)
+          + f" (s per image; {card})", flush=True)
+    return {k: float(fields[k]) for k in SUMMARY_NUMBERS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
@@ -985,9 +1239,10 @@ def main() -> int:
     print(card)                       # nvidia-smi's name, power limit
     print(f"device: {kind}, torch {torch.__version__}, cuda "
           f"{torch.version.cuda}", flush=True)
-    # what a port of the DREAM data path could use on this machine
+    # what the DREAM data path and a flax-checkpoint reader (msgpack)
+    # could use on this machine
     found = {m: importlib.util.find_spec(m) is not None
-             for m in ("PIL", "yaml", "cv2")}
+             for m in ("PIL", "yaml", "cv2", "msgpack")}
     print(f"machine: python {sys.version.split()[0]}, modules {found}, "
           f"{JPEG_HEADER} {os.path.exists(JPEG_HEADER)}", flush=True)
 
@@ -1089,6 +1344,9 @@ def main() -> int:
 
     # ---- 8. stage 1 at full width and its hand-off into stage 2 ----
     cfg1 = make_cfg(STAGE1_CONFIG)
+    # the synthetic batches are made on the card: no copy to stage ahead,
+    # so each gap of TimedLoader's stamps stays one step
+    cfg1.prefetch_batches = 0
     print(f"stage 1: {STAGE1_CONFIG} read by the port's make_cfg: "
           f"{cfg1.backbone_name} DepthNet, {int(cfg1.image_size)}^2 crops, "
           f"b={cfg1.batch_size}, lr {cfg1.lr}, clip {cfg1.clip_gradient}, "
@@ -1124,6 +1382,53 @@ def main() -> int:
                 == 2):
             raise AssertionError(f"2 stage-2 steps after the hand-off "
                                  f"launched {counts}")
+
+    # ---- 9. stage 2 from DREAM-layout files at full width ----
+    from horopose_tpu_torch.pipelines.common import get_dataloaders
+    cfg2 = make_cfg(STAGE2_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, test_dir = write_dream_sets(tmp, card)
+        cfg2.train_ds_names = train_dir
+        cfg2.epoch_size = STAGE2_TRAIN_FRAMES
+        loaders = get_dataloaders(cfg2, device)
+        print(f"stage 2 from files: {STAGE2_CONFIG} read by make_cfg, "
+              f"{cfg2.backbone_name} + {cfg2.rootnet_backbone_name}, "
+              f"{int(cfg2.image_size)}^2 crops, b={cfg2.batch_size}, "
+              f"{cfg2.n_dataloader_workers} loader workers, prefetch "
+              f"{cfg2.prefetch_batches}, augmentations jitter "
+              f"{cfg2.jitter} occlusion {cfg2.occlusion} pillow "
+              f"{cfg2.other_aug}; float32 with cudnn.allow_tf32="
+              f"{torch.backends.cudnn.allow_tf32}", flush=True)
+        loader_alone = time_loader(loaders["train"], card)
+        period = 1e3 * cfg2.batch_size / loader_alone["img_s"]
+        print(f"steady state at b={cfg2.batch_size}: the loader makes a "
+              f"batch every {period:.1f} ms, a step on a batch already on "
+              f"the card takes {train_ms['float32']:.1f} ms (phase 5): "
+              f"{'loader' if period > train_ms['float32'] else 'step'}-"
+              f"bound ({card})", flush=True)
+        reset_counts()
+        run = stage2_train(cfg2, loaders, device, card,
+                           os.path.join(tmp, "experiments"))
+        counts = read_counts("stage-2 from files")
+        n_steps = len(loaders["train"])
+        n_val = len(loaders["test"]["dr"])
+        if not (counts["soft_argmax_3d_fwd"] == n_steps + n_val
+                and counts["soft_argmax_3d_bwd"] == n_steps):
+            raise AssertionError(f"{n_steps} train steps and {n_val} "
+                                 f"validation batches launched {counts}")
+        files = stage2_measure(cfg2, run, loaders, device, card,
+                               train_ms["float32"])
+        reset_counts()
+        harness = stage2_test(run, test_dir, device, card)
+        counts = read_counts("test harness")
+        n_test = -(-STAGE2_TEST_FRAMES // TEST_BATCH)
+        want = n_test + 2 * (FPS_ITERS + 1)
+        if not (counts["soft_argmax_3d_fwd"] == want
+                and counts["soft_argmax_3d_bwd"] == 0):
+            raise AssertionError(f"test_network: {n_test} batches and "
+                                 f"2 x {FPS_ITERS + 1} timed forwards "
+                                 f"launched {counts}")
+        del run, loaders
 
     # ---- 6. float32 comparisons, TF32 off everywhere ----
     torch.backends.cudnn.allow_tf32 = False
@@ -1184,7 +1489,9 @@ def main() -> int:
                     "horopose_tpu/ops/integral_pallas.py:25", fwd_rows,
                     fwd_launches, [128, *cell], uvd_tol,
                     device_kernels=["soft_argmax_3d_fwd_kernel",
-                                    "soft_argmax_3d_merge_kernel"]),
+                                    "soft_argmax_3d_merge_kernel"],
+                    stage2_from_files=dict(loader_alone=loader_alone,
+                                           **files, test=harness)),
         kernel_line("soft_argmax_3d_bwd", sam_src,
                     "horopose_tpu/ops/integral_pallas.py:56", bwd_rows,
                     bwd_launches, [b_train, *cell], dx_tol),

@@ -16,7 +16,8 @@ subset of YAML 1.1 that `configs/` uses, with PyYAML's rules for it:
 Anything else (nested mappings, anchors, multi-line strings, octal or
 sexagesimal numbers) is outside the subset and raises or stays a string.
 Keys only the TPU uses (`mesh_shape`, `remat`, `raster_faces_per_tile`, ...)
-are read and ignored by the port.
+are read and ignored by the port; `compute_dtype` picks the training dtype
+of `python -m horopose_tpu_torch.scripts.train`.
 """
 
 from __future__ import annotations
@@ -243,7 +244,8 @@ def make_default_cfg() -> AttrDict:
     cfg.resume_run = False
     cfg.resume_experiment_name = "resume_name"
 
-    # the JAX package's TPU extensions: read, ignored by the port
+    # the JAX package's TPU extensions: read, ignored by the port (but
+    # compute_dtype, decode_cache, decode_cache_dir and prefetch_batches)
     cfg.mesh_shape = None
     cfg.compute_dtype = "float32"
     cfg.remat = False

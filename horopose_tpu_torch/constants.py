@@ -71,6 +71,35 @@ JOINT_TO_KP = {
     "owi535": [0, 1, 2, 3],
 }
 
+# left/right keypoint index pairs for a horizontal flip (baxter)
+FLIP_PAIRS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14],
+              [15, 16]]
+
+# actuation limits [lo, hi] per joint
+JOINT_BOUNDS = {
+    "panda": np.array([
+        [-2.9671, 2.9671], [-1.8326, 1.8326], [-2.9671, 2.9671],
+        [-3.1416, 0.0873], [-2.9671, 2.9671], [-0.0873, 3.8223],
+        [-2.9671, 2.9671], [0.0000, 0.0400],
+    ], dtype=np.float32),
+    "kuka": np.array([
+        [-2.9671, 2.9671], [-2.0944, 2.0944], [-2.9671, 2.9671],
+        [-2.0944, 2.0944], [-2.9671, 2.9671], [-2.0944, 2.0944],
+        [-3.0543, 3.0543],
+    ], dtype=np.float32),
+    "baxter": np.array([
+        [-1.5708, 1.5708], [-1.7017, 1.7017], [-1.7017, 1.7017],
+        [-2.1470, 1.0470], [-2.1470, 1.0470], [-3.0542, 3.0542],
+        [-3.0542, 3.0542], [-0.0500, 2.6180], [-0.0500, 2.6180],
+        [-3.0590, 3.0590], [-3.0590, 3.0590], [-1.5708, 2.0940],
+        [-1.5708, 2.0940], [-3.0590, 3.0590], [-3.0590, 3.0590],
+    ], dtype=np.float32),
+    "owi535": np.array([
+        [-2.268928, 2.268928], [-1.570796, 1.047198],
+        [-1.047198, 1.570796], [-0.785398, 0.785398],
+    ], dtype=np.float32),
+}
+
 # global training seed
 GLOBAL_SEED = 808
 

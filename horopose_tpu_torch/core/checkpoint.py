@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import zipfile
 from typing import Any, Dict, Optional
 
 import torch
@@ -49,7 +50,14 @@ def save_checkpoint_file(path: str, *, epoch: int, metric: float,
 
 
 def load_checkpoint_file(path: str) -> Dict[str, Any]:
-    """The payload, its tensors on the CPU."""
+    """The payload, its tensors on the CPU. A file that `torch.save` did
+    not write (such as the JAX package's flax msgpack checkpoints) raises
+    NotImplementedError."""
+    if not zipfile.is_zipfile(path):
+        raise NotImplementedError(
+            f"{path} is not a checkpoint of the port (torch.save); reading "
+            f"the JAX package's flax msgpack checkpoints is not ported yet "
+            f"(ROADMAP queue 1 item 4)")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -2,9 +2,10 @@
 
 Port of `horopose_tpu/kinematics/robot.py` for the serving and training
 paths: keypoint links and offsets (with the Baxter joint-origin keypoints),
-`get_keypoints_root`, the FK lift that places keypoint-link `root` in the
-camera, and `get_rotation_at_specific_root`, which the ground truth of a
-non-base reference keypoint needs. All methods accept arbitrary leading
+`get_keypoints_only_fk` (the base-frame keypoints the synthetic DREAM
+writer annotates), `get_keypoints_root`, the FK lift that places
+keypoint-link `root` in the camera, and `get_rotation_at_specific_root`,
+which the ground truth of a non-base reference keypoint needs. All methods accept arbitrary leading
 batch dims.
 """
 
@@ -83,6 +84,10 @@ class Robot:
         R = TWL[..., :3, :3]
         t = TWL[..., :3, 3]
         return torch.einsum("...kij,kj->...ki", R, self._kp_offsets) + t
+
+    def get_keypoints_only_fk(self, cfg: torch.Tensor) -> torch.Tensor:
+        """Keypoints in the robot base frame (identity world pose)."""
+        return self._keypoints_from_TWL(self.get_TWL(cfg))
 
     def get_keypoints(self, cfg: torch.Tensor, rot: torch.Tensor,
                       trans: torch.Tensor) -> torch.Tensor:

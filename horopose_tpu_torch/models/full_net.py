@@ -28,7 +28,8 @@ from torch import nn
 
 from horopose_tpu_torch.models.hrnet import get_hrnet
 from horopose_tpu_torch.models.resnet import batch_norm, get_resnet
-from horopose_tpu_torch.ops.integral import heatmap_integral_pose
+from horopose_tpu_torch.ops.integral import (heatmap_integral_pose,
+                                             integral_uvd)
 from horopose_tpu_torch.ops.transforms import uvz_to_xyz_singlepoint
 
 _RESNETS = ("resnet", "resnet18", "resnet34", "resnet50", "resnet101")
@@ -133,20 +134,47 @@ class FullNet(nn.Module):
         self.decrot = nn.Linear(1024, rotation_dim)
         self.p_dropout = float(p_dropout)
 
-    def _backbones(self, x_reg, x_root):
-        """Conv stacks: -> (root feature (B, C), heatmap logits
-        (B, K*D, H/4, W/4), reg feature (B, C))."""
+    def _autocast(self, x: torch.Tensor):
+        return torch.autocast(x.device.type, dtype=torch.bfloat16,
+                              enabled=self.dtype == torch.bfloat16)
+
+    def _root_feature(self, x_root):
+        """The rootnet backbone's pooled feature (B, C)."""
         if self.rootnet_is_resnet:
-            img_feat = self.rootnet_backbone(x_root).mean(dim=(2, 3))
-        else:
-            img_feat = self.rootnet_backbone(x_root)
+            return self.rootnet_backbone(x_root).mean(dim=(2, 3))
+        return self.rootnet_backbone(x_root)
+
+    def _reg_features(self, x_reg):
+        """The reg backbone -> (heatmap logits (B, K*D, H/4, W/4), pooled
+        feature (B, C))."""
         if self.reg_is_resnet:
             x_out = self.reg_backbone(x_reg)
-            xf = x_out.mean(dim=(2, 3))
-            hm = self.final_layer(self.deconv_layers(x_out))
-        else:
-            hm, xf = self.reg_backbone(x_reg)
-        return img_feat, hm, xf
+            return self.final_layer(self.deconv_layers(x_out)), \
+                x_out.mean(dim=(2, 3))
+        return self.reg_backbone(x_reg)
+
+    def _depth(self, img_feat, k_value):
+        """Root depth (B, 1) in metres from the root feature and k."""
+        gamma = self.depth_layer(img_feat.float()[:, :, None, None])[:, :, 0, 0]
+        return gamma * k_value.reshape(-1, 1).float() / 1000.0
+
+    def root_depth(self, x_root, k_value):
+        """The root-depth branch alone: rootnet backbone -> pooling ->
+        depth_layer -> (B, 1) metres, as in forward."""
+        with self._autocast(x_root):
+            img_feat = self._root_feature(x_root)
+        return self._depth(img_feat, k_value)
+
+    def keypoint_uvd(self, x_reg):
+        """The keypoint branch alone: reg backbone -> deconvs ->
+        final_layer -> the 3-D soft-argmax -> uvd (B, K, 3), as in forward
+        before the root fix and the lift to xyz."""
+        with self._autocast(x_reg):
+            hm, _ = self._reg_features(x_reg)
+        n = self.image_size // 4
+        return integral_uvd(hm, num_joints=self.num_keypoints,
+                            depth_dim=self.depth_dim, height_dim=n,
+                            width_dim=n, use_kernel=self.use_kernel)
 
     def _drop(self, x: torch.Tensor,
               generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -173,14 +201,13 @@ class FullNet(nn.Module):
         xyz_int (B, K, 3).
         """
         B = x_reg.shape[0]
-        with torch.autocast(x_reg.device.type, dtype=torch.bfloat16,
-                            enabled=self.dtype == torch.bfloat16):
-            img_feat, hm, xf = self._backbones(x_reg, x_root)
-        img_feat, xf = img_feat.float(), xf.float()
+        with self._autocast(x_reg):
+            img_feat = self._root_feature(x_root)
+            hm, xf = self._reg_features(x_reg)
+        xf = xf.float()
 
         # ---- root depth ----
-        gamma = self.depth_layer(img_feat[:, :, None, None])[:, :, 0, 0]
-        pred_depth = gamma * k_value.reshape(-1, 1).float() / 1000.0
+        pred_depth = self._depth(img_feat, k_value)
         root_trans = torch.cat([pred_depth.new_zeros(B, 2), pred_depth], -1)
 
         # ---- keypoints: (B, K*D, H, W) has channel order k*D + d, so it

@@ -102,6 +102,24 @@ def soft_argmax_3d(logits: torch.Tensor, depth_dim: int, height_dim: int,
     return uvd.reshape(B, -1, 3)
 
 
+def integral_uvd(out: torch.Tensor, *, num_joints: int, depth_dim: int,
+                 height_dim: int, width_dim: int,
+                 use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Head logits reshapeable to (B, num_joints, D, H, W) -> uvd
+    (B, num_joints, 3) in [-0.5, 0.5]. use_kernel: None decodes through
+    `SoftArgmax3d`, the CUDA kernels (forward and backward) for a CUDA
+    tensor and their plain versions for a CPU one; False asks for the
+    plain forward under torch autograd (tests and chip_smoke.py compare
+    with it)."""
+    B = out.shape[0]
+    x = out.reshape(B * num_joints, depth_dim, height_dim, width_dim)
+    if use_kernel is False:
+        uvd, _, _ = soft_argmax_3d_fwd_plain(x)
+    else:
+        uvd = SoftArgmax3d.apply(x.contiguous())
+    return uvd.reshape(B, num_joints, 3)
+
+
 def heatmap_integral_pose(out: torch.Tensor, *, num_joints: int,
                           depth_dim: int, height_dim: int, width_dim: int,
                           image_size: float, bbox_3d_shape, K: torch.Tensor,
@@ -112,20 +130,13 @@ def heatmap_integral_pose(out: torch.Tensor, *, num_joints: int,
     metres).
 
     out: raw head logits, any layout reshapeable to
-    (B, num_joints, depth_dim, height_dim, width_dim). use_kernel: None
-    decodes through `SoftArgmax3d`, the CUDA kernels (forward and backward)
-    for a CUDA tensor and their plain versions for a CPU one; False asks for
-    the plain forward under torch autograd (tests and chip_smoke.py compare
-    with it).
+    (B, num_joints, depth_dim, height_dim, width_dim); use_kernel as in
+    `integral_uvd`.
     """
-    B = out.shape[0]
     depth_factor = float(bbox_3d_shape[2]) * 1e-3
-    x = out.reshape(B * num_joints, depth_dim, height_dim, width_dim)
-    if use_kernel is False:
-        uvd, _, _ = soft_argmax_3d_fwd_plain(x)
-    else:
-        uvd = SoftArgmax3d.apply(x.contiguous())
-    uvd = uvd.reshape(B, num_joints, 3)
+    uvd = integral_uvd(out, num_joints=num_joints, depth_dim=depth_dim,
+                       height_dim=height_dim, width_dim=width_dim,
+                       use_kernel=use_kernel)
     if fixroot:  # out-of-place uvd[:, rootid, 2] = 0
         root_d = torch.zeros(num_joints, 3, dtype=torch.bool,
                              device=uvd.device)

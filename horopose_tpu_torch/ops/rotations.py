@@ -51,6 +51,21 @@ def geodesic_distance(m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     return torch.arccos(torch.clamp(cos, -1.0, 1.0))
 
 
+def euler_from_rotmat(matrix: torch.Tensor) -> torch.Tensor:
+    """XYZ euler angles (..., 3) from rotation matrices, with the
+    reference's gimbal-lock branch (sy < 1e-6: x from the second row,
+    z = 0)."""
+    r = matrix
+    sy = torch.sqrt(r[..., 0, 0] ** 2 + r[..., 1, 0] ** 2)
+    singular = (sy < 1e-6).to(r.dtype)
+    x = torch.atan2(r[..., 2, 1], r[..., 2, 2])
+    y = torch.atan2(-r[..., 2, 0], sy)
+    z = torch.atan2(r[..., 1, 0], r[..., 0, 0])
+    xs = torch.atan2(-r[..., 1, 2], r[..., 1, 1])
+    return torch.stack([x * (1 - singular) + xs * singular, y,
+                        z * (1 - singular)], dim=-1)
+
+
 def make_T(rotmat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     """Assemble homogeneous transforms (..., 4, 4) from R (..., 3, 3), t (..., 3)."""
     batch = torch.broadcast_shapes(rotmat.shape[:-2], trans.shape[:-1])

@@ -1,26 +1,41 @@
-"""Model and robot construction from a `FullNetConfig`.
+"""Shared pipeline plumbing: model and robot construction, seeding, and
+the DREAM data loaders.
 
-Port of `build_fullnet`, `make_robot` and `crop_sizes` from
-`horopose_tpu/pipelines/common.py`. The dataclass holds the keys of the YAML
-config that the port's FullNet and its stage-2 steps read; its defaults are
-the panda flagship (`configs/panda/full.yaml`), model and stage-2 training
-alike. A key that file leaves out takes the JAX package's default
-(`horopose_tpu/config.py`). `FullNetConfig.from_cfg` takes them from a
-config that `config.make_cfg` read.
+Port of `horopose_tpu/pipelines/common.py`: `build_fullnet`, `make_robot`,
+`crop_sizes`, `set_seed`, `make_pnp_fn` and `get_dataloaders` (the train
+set from cfg.train_ds_names; the test sets found by the train_dr -> test_dr
+/ test_photo naming convention, plus the four real Panda camera sets when
+they are on disk). The loaders run in one process: the rank-strided
+sampler of a multi-process run waits for the port's data parallelism.
+
+`FullNetConfig` holds the keys of the YAML config that the port's FullNet
+and its stage-2 steps read; its defaults are the panda flagship
+(`configs/panda/full.yaml`), model and stage-2 training alike. A key that
+file leaves out takes the JAX package's default (`horopose_tpu/config.py`).
+`FullNetConfig.from_cfg` takes them from a config that `config.make_cfg`
+read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import random
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from horopose_tpu_torch import constants as C
+from horopose_tpu_torch.data.dream import DreamDataset
+from horopose_tpu_torch.data.samplers import (DataLoader, PartialSampler,
+                                              WeightedRandomSampler)
 from horopose_tpu_torch.kinematics.robot import Robot
 from horopose_tpu_torch.models.full_net import FullNet
+
+REAL_DS_SHORTS = ("azure", "kinect", "realsense", "orb")
 
 
 @dataclasses.dataclass
@@ -90,8 +105,11 @@ class FullNetConfig:
                     f"{key}: loading ImageNet backbone weights is not "
                     f"ported yet (ROADMAP queue 1 item 4)")
         values = {}
+        if cfg.get("other_image_size"):
+            # the model's heatmap geometry follows the regression crop
+            values["image_size"] = _size_hw(cfg["other_image_size"], None)[0]
         for field in dataclasses.fields(cls):
-            if field.name not in cfg:
+            if field.name not in cfg or field.name in values:
                 continue
             v, default = cfg[field.name], field.default
             if v is None or default is None:
@@ -157,4 +175,140 @@ def random_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
         else:
             fan_in = math.prod(shape[1:])
             out[key] = torch.randn(shape, generator=g) * math.sqrt(2.0 / fan_in)
+    return out
+
+
+def set_seed(seed: int = C.GLOBAL_SEED):
+    """Seed the global `random` and numpy generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def make_pnp_fn(ds_names):
+    """The pseudo-ground-truth rotation of a set: None for a synthetic set,
+    where TCO is the rotation ground truth. The real sets need PnP of the
+    annotated 2D keypoints against FK 3D points, not ported yet."""
+    if "synth" in str(ds_names):
+        return None
+    raise NotImplementedError(
+        f"{ds_names}: a real set needs the PnP pseudo-ground truth "
+        f"(ops/pnp.py), not ported yet (ROADMAP queue 1 item 6)")
+
+
+def _resolve_cache_dir(cfg, path) -> str:
+    """Per-dataset decode-cache directory (its contents depend only on the
+    jpgs, so the key is just the dataset's name); "" when off."""
+    if not cfg.get("decode_cache"):
+        return ""
+    root = str(cfg.get("decode_cache_dir") or
+               os.environ.get("HOROPOSE_CACHE_DIR") or
+               os.path.join(str(path), ".decode_cache"))
+    root_abs, path_abs = os.path.abspath(root), os.path.abspath(str(path))
+    # separator-boundary containment: /data/dream-v2 is NOT inside
+    # /data/dream (a bare startswith would say it is)
+    if root_abs == path_abs or root_abs.startswith(path_abs + os.sep):
+        return root  # already inside the dataset dir: no name needed
+    return os.path.join(root, os.path.basename(os.path.normpath(str(path))))
+
+
+def _size_hw(value, fallback) -> tuple:
+    """Normalize a size knob (scalar / (h, w) / None) to an int pair."""
+    if value is None:
+        value = fallback
+    if isinstance(value, (tuple, list)):
+        return (int(value[0]), int(value[1]))
+    return (int(value), int(value))
+
+
+def dataset_crop_hw(cfg) -> tuple:
+    """(rootnet_hw, other_hw) of a `config.make_cfg` config: the two crops
+    are sized independently and both default to cfg.image_size. Non-square
+    crops are rejected: the heatmap geometry is image_size // 4 in both
+    axes."""
+    sizes = (_size_hw(cfg.get("rootnet_image_size"), cfg.image_size),
+             _size_hw(cfg.get("other_image_size"), cfg.image_size))
+    for tag, (h, w) in zip(("rootnet_image_size", "other_image_size"), sizes):
+        if h != w:
+            raise ValueError(
+                f"{tag}=({h},{w}) is non-square; FullNet assumes square "
+                "crops (heatmap geometry is image_size//4 in both axes)")
+    return sizes
+
+
+def _mk_dataset(cfg, path, train: bool) -> DreamDataset:
+    rootnet_hw, other_hw = dataset_crop_hw(cfg)
+    return DreamDataset(
+        path,
+        decode_cache_dir=_resolve_cache_dir(cfg, path),
+        padding=bool(cfg.get("padding")),
+        rootnet_resize_hw=rootnet_hw,
+        other_resize_hw=other_hw,
+        color_jitter=cfg.jitter if train else False,
+        rgb_augmentation=cfg.other_aug if train else False,
+        occlusion_augmentation=cfg.occlusion if train else False,
+        occlu_p=cfg.occlu_p,
+        extend_ratio=cfg.extend_ratio,
+        flip=cfg.rootnet_flip if train else False,
+        process_truncation=bool(cfg.fix_truncation),
+        truncation_padding=tuple(cfg.truncation_padding),
+    )
+
+
+def get_dataloaders(cfg, device="cuda") -> Dict:
+    """The train loader and {dataset name: eval loader} of a
+    `config.make_cfg` config; batches are pinned when `device` is a CUDA
+    device. Eval sets that are not on disk are skipped."""
+    train_path = cfg.train_ds_names
+    robot = cfg.urdf_robot_name
+    pin = torch.device(device).type == "cuda"
+    out: Dict = {"test": {}}
+
+    ds_train = _mk_dataset(cfg, train_path, train=True)
+    if len(ds_train) == 0:
+        raise FileNotFoundError(
+            f"no DREAM samples (*.jpg + *.json) found under {train_path!r}; "
+            "set HOROPOSE_DATA_DIR or fix train_ds_names in the config")
+    sampler = PartialSampler(ds_train, cfg.epoch_size)
+    batch_size = int(cfg.batch_size)
+    if cfg.get("resample"):
+        # weighted resampling; the weights file is a user-supplied artifact
+        weights_path = os.path.join("unit_test", "z_weights.npy")
+        if os.path.exists(weights_path):
+            sampler = WeightedRandomSampler(
+                np.load(weights_path),
+                num_samples=min(cfg.epoch_size, len(ds_train)))
+        else:
+            print(f"[data] resample=True but {weights_path} missing; "
+                  "falling back to uniform sampling")
+    out["train"] = DataLoader(ds_train, batch_size=batch_size,
+                              sampler=sampler,
+                              num_workers=cfg.n_dataloader_workers,
+                              drop_last=True, pin_memory=pin)
+    if len(out["train"]) == 0:
+        # drop_last + a sampler shorter than one batch = silent no-op
+        # epochs (loss meters log 0.0); name the cause loudly
+        print(f"[data] WARNING: zero train batches per epoch — sampler "
+              f"yields {len(sampler)} indices (epoch_size={cfg.epoch_size}, "
+              f"dataset={len(ds_train)}) < batch_size {batch_size}; "
+              "every epoch will be a no-op")
+    out["train_dataset"] = ds_train
+
+    candidates = {"dr": train_path.replace("train_dr", "test_dr")}
+    if robot != "baxter":
+        candidates["photo"] = train_path.replace("train_dr", "test_photo")
+    if robot == "panda":
+        for short in REAL_DS_SHORTS:
+            candidates[short] = os.path.join(
+                os.path.dirname(os.path.dirname(train_path)),
+                "real", f"panda-3cam_{short}" if short != "orb"
+                else "panda-orb")
+    for name, path in candidates.items():
+        if os.path.isdir(path) and os.path.abspath(path) != \
+                os.path.abspath(train_path):
+            ds = _mk_dataset(cfg, path, train=False)
+            if len(ds):
+                out["test"][name] = DataLoader(
+                    ds, batch_size=batch_size,
+                    num_workers=cfg.n_dataloader_workers, drop_last=False,
+                    pin_memory=pin)
     return out

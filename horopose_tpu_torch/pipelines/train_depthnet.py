@@ -6,12 +6,14 @@ the config, run epochs of train steps, validate each test set (the
 lowest-depth-error checkpoint per dataset with the epoch-regression guard,
 and resume from an experiment's checkpoint.
 
-The DREAM data loaders are not ported yet (ROADMAP queue 1 items 2-3), so
-the caller passes its loaders: {"train": a sized iterable of batches, "test":
-{dataset name: an iterable of batches}}, each batch a dict of tensors on
-the training device in the JAX `DataLoader`'s layout (`core.engine.
-batch_to_torch`, `data.synthetic.synthetic_dream_batch`). Batches are not
-prefetched: a loader that yields device tensors does that itself.
+The loaders are the DREAM loaders of the config
+(`pipelines.common.get_dataloaders`) unless the caller passes its own:
+{"train": a sized iterable of batches, "test": {dataset name: an iterable
+of batches}}, each batch a dict of tensors in the JAX `DataLoader`'s
+layout (`data.samplers.collate`, `data.synthetic.synthetic_dream_batch`).
+Batches reach the training device through
+`parallel.prefetch.prefetch_to_device`, `cfg.prefetch_batches` ahead; a
+batch already there passes through.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from horopose_tpu_torch.core.loggers import (AverageMeter,
                                              DeviceLogAccumulator,
                                              create_logger)
 from horopose_tpu_torch.models.depth_net import RootNet
+from horopose_tpu_torch.parallel.prefetch import prefetch_to_device
+from horopose_tpu_torch.pipelines.common import get_dataloaders
 
 CKPT_TEMPLATE = "curr_best_root_depth(wholistic)_DATASET_model.pk"
 
@@ -55,15 +59,14 @@ def train_depthnet(cfg, loaders: Optional[Mapping] = None,
                    device="cuda", dtype: torch.dtype = torch.float32,
                    exp_root: str = "experiments") -> TrainState:
     """Train stage 1 as the config says, its experiment folder under
-    `exp_root`; returns the final TrainState."""
-    if loaders is None:
-        raise NotImplementedError(
-            "the DREAM data loaders are not ported yet (ROADMAP queue 1 "
-            "items 2-3); pass loaders={'train': ..., 'test': {name: ...}}")
+    `exp_root`; returns the final TrainState. `loaders` defaults to
+    `get_dataloaders(cfg, device)`."""
     if cfg.get("backbone_pretrained"):
         raise NotImplementedError("backbone_pretrained: loading ImageNet "
                                   "backbone weights is not ported yet "
                                   "(ROADMAP queue 1 item 4)")
+    if loaders is None:
+        loaders = get_dataloaders(cfg, device)
     _, ckpt_folder, _, writer = create_logger(cfg, exp_root)
     try:
         return _train(cfg, loaders, max_epochs, max_steps_per_epoch, device,
@@ -95,11 +98,12 @@ def _train(cfg, loaders, max_epochs, max_steps_per_epoch, device, dtype,
 
     train_step = build_depthnet_train_step(cfg, model, optimizer, scheduler)
     eval_step = build_depthnet_eval_step(cfg, model)
+    ahead = int(cfg.get("prefetch_batches", 2) or 0)
 
     def validate(name, loader, epoch):
         loss_meter = AverageMeter()
         errors = []
-        for batch in loader:
+        for batch in prefetch_to_device(loader, device, ahead):
             out = eval_step(batch)
             valid = batch.get("_valid")
             err = out["error_depth"]
@@ -121,7 +125,8 @@ def _train(cfg, loaders, max_epochs, max_steps_per_epoch, device, dtype,
     for epoch in range(start_epoch, n_epochs):
         # one host read per 100 steps, not one per step
         acc = DeviceLogAccumulator(flush_every=100)
-        for batchid, batch in enumerate(train_loader):
+        for batchid, batch in enumerate(
+                prefetch_to_device(train_loader, device, ahead)):
             if max_steps_per_epoch and batchid >= max_steps_per_epoch:
                 break
             acc.push(train_step(batch))

@@ -238,9 +238,12 @@ def _tiny_cfg(**overrides):
     return cfg
 
 
-def test_train_depthnet_needs_loaders():
-    with pytest.raises(NotImplementedError, match="queue 1 items 2-3"):
-        train_depthnet(_tiny_cfg(), device="cpu")
+def test_train_depthnet_needs_loaders(tmp_path):
+    """Without loaders it takes the config's DREAM loaders
+    (get_dataloaders), which name the train set when it holds no frame."""
+    cfg = _tiny_cfg(train_ds_names=str(tmp_path / "panda_synth_train_dr"))
+    with pytest.raises(FileNotFoundError, match="panda_synth_train_dr"):
+        train_depthnet(cfg, device="cpu", exp_root=str(tmp_path))
 
 
 def test_build_rootnet_is_seeded_and_leaves_the_global_generator():
