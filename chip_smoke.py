@@ -71,12 +71,25 @@ Phases, each of which raises on failure:
      padded) from the trained weights, whose summary.txt must hold every
      field; it launches the forward once a batch and once a timed
      forward of `measure_forward_fps`;
+  10. stage 3 (sim2real) at full width: the writer puts a real-named set
+     (`real/panda-3cam_azure`) of 128 480x640 JPEGs beside phase 9's;
+     `configs/panda/self_supervised/azure.yaml` as read (b=32, the tiled
+     renderer, a teacher at 240x320) but for train_ds_names, a random
+     teacher (allow_random_teacher), phase 9's checkpoint as
+     pretrained_weight_on_synth and an epoch of 4 steps;
+     `pipelines.train_sim2real.train_sim2real` runs the tracked-view pass,
+     the steps, a validation with PnP and the tracked renders, the
+     soft-argmax launch counts checked; then the step time, peak memory,
+     device busy and idle share, the dense and tiled renders at the
+     step's shapes, the teacher, PnP of 32 frames (its residual, the
+     calls that synchronise, R against the CPU), a timed validation, and
+     one b=2 step on the card against the CPU with TF32 off;
   7. one JSON line describing every kernel, and as the last line
      {"ok": true, "device": {...}}.
 
-They run in the order 1-5, 8, 9, 6, 7: phases 8 and 9 keep cuDNN's
+They run in the order 1-5, 8, 9, 10, 6, 7: phases 8-10 keep cuDNN's
 default TF32 for float32, as phases 4 and 5 do, and phase 8's b=2
-comparison runs with phase 6's. Each path's kernel launch counts are set to 0 just
+comparison runs with phase 6's. Each phase prints its wall time. Each path's kernel launch counts are set to 0 just
 before it and read just after it; launches made to compare a kernel with
 its plain version are not counted.
 
@@ -86,6 +99,7 @@ It exits non-zero with no result when no CUDA device is present.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib.util
 import json
 import os
@@ -1216,6 +1230,360 @@ def stage2_test(run, test_dir: str, device, card: str) -> dict:
     return {k: float(fields[k]) for k in SUMMARY_NUMBERS}
 
 
+STAGE3_CONFIG = os.path.join("configs", "panda", "self_supervised",
+                             "azure.yaml")
+# phase 10: a real-named set of 480x640 noise JPEGs; one epoch of 4 steps
+# at the config's b=32, validated on the set itself (4 batches)
+STAGE3_FRAMES, STAGE3_STEPS, STAGE3_WARMUP = 128, 6, 2
+S2R_LOSS_REL, S2R_GRAD_COSINE = 1e-3, 0.9999   # b=2 step, card vs CPU
+PNP_CROSS_ATOL = 1e-4                         # R, card vs CPU
+
+
+def held_device_ms(fn, hold_s: float = 0.5) -> tuple:
+    """(device ms of fn()'s work, its result), timed between CUDA events
+    queued behind a sleep kernel that holds the stream for hold_s while
+    the host enqueues the work: from the sleep's end the device runs it
+    back to back for as long as the host stays ahead (a full launch queue
+    blocks the host, not the device), so the time leaves out host stalls."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(hold_s * 2e9))       # cycles at about 2 GHz
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def profile_device(fn) -> tuple:
+    """({device activity name: [ms, count]}, fn()'s result) of one fn()
+    traced on the device alone. The times are read from the raw kineto
+    events: the profiler's own event list takes minutes to build for the
+    ~20,000 kernels of a stage-3 step."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation()):
+            row = times.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+    return times, out
+
+
+def collect_garbage(label: str, card: str):
+    """A full garbage collection, timed, so that none lands inside a
+    timed region: the port's loaders are freed in one (their batch
+    sampler refers back to them), and on an H100 each of their worker
+    processes then took about 5 s to stop."""
+    t0 = time.perf_counter()
+    gc.collect()
+    print(f"gc.collect {label}: {time.perf_counter() - t0:.2f} s ({card})",
+          flush=True)
+
+
+def _rows(batch: dict, n: int) -> dict:
+    return {k: _rows(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in batch.items()}
+
+
+def stage3_setup(tmp: str, stage2_ckpt: str, device, card: str):
+    """The real-named set, the azure config as read with the phase's four
+    changes, its loaders (the train set carrying the full frames) and the
+    random teacher."""
+    from horopose_tpu_torch.config import make_cfg
+    from horopose_tpu_torch.pipelines.common import get_dataloaders
+    from horopose_tpu_torch.pipelines.train_sim2real import load_seg_teacher
+    from horopose_tpu_torch.tools.synth_dream import \
+        make_synthetic_dream_dataset
+    t0 = time.perf_counter()
+    real = make_synthetic_dream_dataset(tmp, "panda", STAGE3_FRAMES,
+                                        seed=SEED + 70, synthetic=False,
+                                        split="azure")
+    print(f"stage 3: wrote {STAGE3_FRAMES} frames of {real} in "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    cfg = make_cfg(STAGE3_CONFIG)
+    cfg.train_ds_names = str(real)
+    cfg.allow_random_teacher = True
+    cfg.pretrained_weight_on_synth = stage2_ckpt
+    cfg.epoch_size = STAGE3_FRAMES
+    loaders = get_dataloaders(cfg, device)
+    loaders["train"].dataset.return_original_image = True
+    teacher = load_seg_teacher(cfg, device=device)
+    print(f"stage 3: {STAGE3_CONFIG} read by make_cfg, "
+          f"{cfg.backbone_name} + {cfg.rootnet_backbone_name}, "
+          f"{int(cfg.image_size)}^2 crops, b={cfg.batch_size}, lr {cfg.lr}, "
+          f"mask loss {cfg.mask_loss_func} x{cfg.mask_loss_weight}, IoU "
+          f"x{cfg.iou_loss_weight}, scale x{cfg.scale_loss_weight}, align "
+          f"x{cfg.align_3d_loss_weight}, raster_faces_per_tile "
+          f"{cfg.raster_faces_per_tile}, teacher at {teacher.out_hw}; changed: "
+          f"train_ds_names, allow_random_teacher, pretrained_weight_on_synth "
+          f"(phase 9's checkpoint), epoch_size {STAGE3_FRAMES} "
+          f"({len(loaders['train'])} steps); float32 with "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    return cfg, loaders, teacher
+
+
+def stage3_train(cfg, loaders, teacher, device, card: str,
+                 exp_root: str) -> dict:
+    """`train_sim2real` for one epoch (the caller resets the launch counts
+    around it): the tracked-view pass, the steps, the validation with PnP,
+    the tracked renders; its scalars must be finite."""
+    from horopose_tpu_torch.pipelines.train_sim2real import train_sim2real
+    t0 = time.perf_counter()
+    state = train_sim2real(cfg, loaders, max_epochs=1, seg_teacher=teacher,
+                           device=device, exp_root=exp_root)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    folder = os.path.join(exp_root, cfg.exp_name)
+    with open(os.path.join(folder, "log", "scalars.jsonl"),
+              encoding="utf-8") as f:
+        scalars = {r["tag"]: r["value"] for r in map(json.loads, f)}
+    tracked = [n for n in os.listdir(os.path.join(folder, "track"))
+               if n.endswith(".jpg")]
+    if (not all(np.isfinite(v) for v in scalars.values())
+            or "Val/AUC_ADD_azure" not in scalars or not tracked):
+        raise AssertionError(f"stage 3: scalars {scalars}, tracked views "
+                             f"{tracked}")
+    print(f"stage 3 epoch ({len(loaders['train'])} steps, the tracked-view "
+          f"pass and a validation with PnP): {epoch_s:.1f} s; "
+          + ", ".join(f"{t} {scalars[t]:.5g}" for t in (
+              "Train/loss", "Train/loss_iou", "Train/loss_error3d_align",
+              "Train/cull_overflow", "Val/AUC_ADD_azure",
+              "Val/rot_diff_azure"))
+          + f"; {len(tracked)} tracked views written ({card})", flush=True)
+    return dict(state=state, epoch_s=epoch_s, n_tracked=len(tracked))
+
+
+def stage3_measure(cfg, run, loaders, teacher, device, card: str,
+                   lap=lambda part: None) -> dict:
+    """After the epoch, on a loader batch on the card: the step time, its
+    device busy, idle share and peak memory; the dense and tiled renders
+    (forward and backward) at the step's shapes; the teacher; PnP of the
+    batch's keypoints and which of its calls synchronise; a validation."""
+    import warnings
+    from horopose_tpu_torch.core.engine import build_full_eval_step
+    from horopose_tpu_torch.core.loggers import NullWriter
+    from horopose_tpu_torch.kinematics.meshes import build_robot_mesh
+    from horopose_tpu_torch.ops.pnp import batch_project, pnp
+    from horopose_tpu_torch.ops.rasterizer import (render_robot_silhouette,
+                                                   resolve_faces_per_tile)
+    from horopose_tpu_torch.ops.rotations import (rotmat_to_axis_angle,
+                                                  rotmat_to_rot6d)
+    from horopose_tpu_torch.parallel.prefetch import (prefetch_to_device,
+                                                      to_device)
+    from horopose_tpu_torch.pipelines.common import FullNetConfig, make_robot
+    from horopose_tpu_torch.pipelines.train_full import validate_full
+    from horopose_tpu_torch.pipelines import train_sim2real as S
+    fcfg = FullNetConfig.from_cfg(cfg)
+    state, robot = run["state"], make_robot(fcfg, device=device)
+    mesh = build_robot_mesh(robot.model, {n: i for i, n in
+                                          enumerate(robot.plan.link_names)})
+    batch = to_device(next(iter(loaders["train"])), device)
+    b = int(batch["TCO"].shape[0])
+    out = {}
+
+    # the step
+    step = S.build_sim2real_train_step(cfg, state.model, robot, mesh, teacher,
+                                       state.optimizer, state.scheduler)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(STAGE3_WARMUP + STAGE3_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not all(bool(torch.isfinite(v)) for v in logs.values()):
+        raise AssertionError(f"stage 3 step: {logs}")
+    ms = 1e3 * statistics.median(times[STAGE3_WARMUP:])
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    print(f"stage 3 step f32 b={b}: {ms:.3f} ms/step, {1e3 * b / ms:.1f} "
+          f"img/s (median of {STAGE3_STEPS} after {STAGE3_WARMUP} warm-up; "
+          f"steps {[round(1e3 * t, 1) for t in times]}); peak memory "
+          f"{peak:.2f} GiB; cull_overflow {float(logs['cull_overflow'])} "
+          f"({card})", flush=True)
+    out.update(step_ms=ms, peak_gib=peak)
+    lap("10 step")
+
+    # the renders at the step's shapes: the batch's own poses at root 0,
+    # after a collection (one that landed in a timed dense render took
+    # 91 s on an H100, the render 1.2 s on the device)
+    collect_garbage("before the renders", card)
+    out_hw = teacher.out_hw
+    K = batch["K_original"].float() * (out_hw[0] / 480.0)
+    K[:, 2, 2] = 1.0
+    TCO = batch["TCO"].float()
+    rot, trans = rotmat_to_rot6d(TCO[:, :3, :3]), TCO[:, :3, 3]
+    pose = batch["jointpose"].float()
+    for name, budget in (("dense", 0), ("tiled", resolve_faces_per_tile(
+            cfg.raster_faces_per_tile, mesh.num_faces))):
+        def render(budget=budget):
+            r = rot.clone().requires_grad_()
+            t = trans.clone().requires_grad_()
+            alpha, ov = render_robot_silhouette(
+                robot, mesh, pose, r, t, K, out_hw, root=0,
+                faces_per_tile=budget, return_overflow=True)
+            alpha.sum().backward()
+            return alpha, ov
+        r_ms = time_ms(render, reps=2)
+        r_busy, (alpha, ov) = held_device_ms(render)
+        out[f"raster_{name}"] = dict(ms=r_ms, device_busy_ms=r_busy,
+                                     faces_per_tile=budget,
+                                     overflow=float(ov),
+                                     mean_alpha=float(alpha.detach().mean()))
+        print(f"rasterizer {name} (faces_per_tile {budget}) forward + "
+              f"backward at ({b}, {out_hw[0]}x{out_hw[1]}, {mesh.num_faces} "
+              f"faces): {r_ms:.3f} ms (CUDA events, median of 2), "
+              f"{r_busy:.3f} ms with the host ahead; overflow {float(ov)}, "
+              f"mean alpha {float(alpha.detach().mean()):.4f} ({card})",
+              flush=True)
+
+    lap("10 renders")
+
+    # the teacher
+    images = batch["images_original"]
+    with torch.no_grad():
+        t_ms = time_ms(lambda: teacher(images), reps=5)
+    out["teacher_ms"] = t_ms
+    print(f"teacher forward b={b} ({images.shape[1]}x{images.shape[2]} -> "
+          f"{out_hw[0]}x{out_hw[1]}): {t_ms:.3f} ms (median of 5) ({card})",
+          flush=True)
+
+    # PnP of the annotated keypoints against FK, as prepare_gt runs it
+    pts2d = batch["keypoints_2d_original"].float()
+    pts3d = robot.get_keypoints_only_fk(pose)
+    K0 = batch["K_original"].float()
+    with torch.no_grad():
+        p_ms = time_ms(lambda: pnp(pts2d, pts3d, K0), reps=3)
+        t0 = time.perf_counter()
+        pnp(pts2d, pts3d, K0)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                Rp, tp = pnp(pts2d, pts3d, K0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                        for w in caught if "synchroniz" in str(w.message)})
+        theta = torch.cat([rotmat_to_axis_angle(Rp), tp], -1)
+        resid = float((batch_project(theta, pts3d, K0) - pts2d)
+                      .norm(dim=-1).max())
+        Rc, _ = pnp(pts2d.cpu(), pts3d.cpu(), K0.cpu())
+    cross = float((Rp.cpu() - Rc).abs().max())
+    out.update(pnp_ms=p_ms, pnp_host_ms=host_ms, pnp_max_residual_px=resid,
+               pnp_syncs=syncs, pnp_card_vs_cpu_R=cross)
+    print(f"PnP b={b} (N=7): {p_ms:.3f} ms (CUDA events, median of 3; "
+          f"{host_ms:.3f} ms on the host clock); largest "
+          f"reprojection residual {resid:.3e} px; synchronising calls "
+          f"{syncs}; R card vs CPU max |dR| {cross:.3e} (<= "
+          f"{PNP_CROSS_ATOL}) ({card})", flush=True)
+    if not (cross <= PNP_CROSS_ATOL and resid < 1.0):
+        raise AssertionError("PnP on the card disagrees with the CPU or "
+                             "misses the keypoints")
+
+    lap("10 teacher, PnP")
+
+    # validation with PnP on the real set
+    eval_loader = S._eval_loaders(cfg, {"test": {}}, device)["azure"]
+    eval_step = build_full_eval_step(fcfg, state.model, robot,
+                                     pnp_fn=pnp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    validate_full(fcfg, robot, eval_step,
+                  prefetch_to_device(eval_loader, device,
+                                     int(cfg.prefetch_batches)),
+                  NullWriter(), 0, "azure")
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    out["val_img_s"] = STAGE3_FRAMES / val_s
+    lap("10 validation")
+
+    # the step's device busy from one traced step, last: on an H100, work
+    # on the card after a trace of this many kernels ran slow until the
+    # next trace started (a render's forward and backward took 47 s, not
+    # 1.2 s), so an empty trace follows it
+    times, _ = profile_device(lambda: step(batch, gen))
+    profile_device(lambda: None)
+    busy = sum(t for t, _ in times.values())
+    mine = ", ".join(
+        f"{name} {sum(t for k, (t, _) in times.items() if name in k):.3f} ms"
+        for name in ("soft_argmax_3d_fwd", "soft_argmax_3d_bwd"))
+    print(f"stage 3 step breakdown f32 b={b}: device busy {busy:.3f} ms of "
+          f"a {ms:.3f} ms step (idle share {1 - busy / ms:.3f}); {mine}; "
+          f"{len(times)} distinct kernels ({card})", flush=True)
+    for name, (t, n) in sorted(times.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {t:9.3f} ms x{n:<5} {name[:90]}")
+    out.update(device_busy_ms=busy, idle_share=1 - busy / ms)
+    lap("10 step trace")
+    print(f"stage 3 validation of {STAGE3_FRAMES} frames at b={b} with PnP: "
+          f"{val_s:.3f} s, {out['val_img_s']:.1f} img/s, loader and metrics "
+          f"included ({card})", flush=True)
+    return out
+
+
+def compare_sim2real_card_cpu(cfg, loaders, stage2_ckpt: str, device,
+                              card: str):
+    """One stage-3 step at b=2 on the card and on the CPU, TF32 off,
+    dropout off: the phase-9 weights, the random teacher, the first two
+    frames of the real set."""
+    from horopose_tpu_torch.core.checkpoint import (load_checkpoint_file,
+                                                    model_state_dict)
+    from horopose_tpu_torch.core.engine import make_optimizer
+    from horopose_tpu_torch.kinematics.meshes import build_robot_mesh
+    from horopose_tpu_torch.models.deeplab import SegTeacher
+    from horopose_tpu_torch.pipelines import train_sim2real as S
+    from horopose_tpu_torch.pipelines.common import FullNetConfig, make_robot
+    from horopose_tpu_torch.pipelines.train_full import seeded_fullnet
+    fcfg = FullNetConfig.from_cfg(cfg)
+    batch = _rows(next(iter(loaders["train"])), 2)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for dev in (device, torch.device("cpu")):
+            model = seeded_fullnet(fcfg)
+            model.load_state_dict(model_state_dict(
+                load_checkpoint_file(stage2_ckpt), model))
+            model.p_dropout = 0.0
+            model.to(dev)
+            robot = make_robot(fcfg, device=dev)
+            mesh = build_robot_mesh(robot.model, {
+                n: i for i, n in enumerate(robot.plan.link_names)})
+            teacher = SegTeacher.init_random(0).to(dev)
+            opt, sched = make_optimizer(fcfg, model.parameters(), 1)
+            step = S.build_sim2real_train_step(cfg, model, robot, mesh,
+                                               teacher, opt, sched)
+            logs = step(_batch_to(batch, dev), None)
+            out.append(({k: float(v) for k, v in logs.items()},
+                        _grads(model)))
+            del model, teacher, step
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    (card_logs, card_grads), (cpu_logs, cpu_grads) = out
+    loss_rel = _loss_rel(card_logs, cpu_logs)
+    cos = _cosine(card_grads, cpu_grads)
+    print(f"stage 3 step f32 b=2: card vs CPU, TF32 off: losses rel_err "
+          f"{loss_rel:.3e} (<= {S2R_LOSS_REL}), gradient cosine {cos:.8f} "
+          f"(>= {S2R_GRAD_COSINE}); card {card_logs}, CPU {cpu_logs} "
+          f"({card})", flush=True)
+    if not (loss_rel <= S2R_LOSS_REL and cos >= S2R_GRAD_COSINE):
+        raise AssertionError("stage 3 step on the card disagrees with the "
+                             "CPU")
+    return dict(loss_rel=loss_rel, grad_cosine=cos)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
@@ -1246,6 +1614,15 @@ def main() -> int:
     print(f"machine: python {sys.version.split()[0]}, modules {found}, "
           f"{JPEG_HEADER} {os.path.exists(JPEG_HEADER)}", flush=True)
 
+    # each phase's wall time, host clock
+    laps = [time.perf_counter()]
+
+    def lap(phase: str):
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - laps[-1]:.1f} s (total "
+              f"{now - laps[0]:.1f} s)", flush=True)
+        laps.append(now)
+
     # every wrapper's launch count, set to 0 just before a path and read
     # just after it
     wrappers = {"soft_argmax_3d_fwd": integral_cuda.soft_argmax_3d_fwd,
@@ -1274,6 +1651,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    lap("1-2")
+
     # ---- 3. kernels against plain ----
     cfg = FullNetConfig()
     b_train = cfg.batch_size
@@ -1282,6 +1661,8 @@ def main() -> int:
                                  card=card)
     bwd_rows = check_soft_argmax_bwd(device, sam_bwd_cases(b_train), reps=20,
                                      card=card)
+
+    lap("3")
 
     # ---- 3c. the conv kernel, then its path: the bench entry point ----
     branch0 = (BRANCH0_HW, BRANCH0_HW, BRANCH0_CHANNELS, BRANCH0_CHANNELS)
@@ -1292,6 +1673,8 @@ def main() -> int:
     print(json.dumps(bench), flush=True)
     if read_counts("conv bench")["conv3x3_nhwc"] == 0:
         raise AssertionError("the conv bench launched no conv3x3_nhwc")
+
+    lap("3c")
 
     # ---- 4. serving end to end at full width ----
     sd = random_state_dict(build_fullnet(cfg), SEED)
@@ -1317,6 +1700,8 @@ def main() -> int:
         for b in (1, 128):
             breakdown(pred, b, card)
 
+    lap("4")
+
     # ---- 5. training end to end at full width ----
     root_size, size = crop_sizes(cfg)
     robot = make_robot(cfg, device=device)
@@ -1341,6 +1726,8 @@ def main() -> int:
         print(f"train {name}: {ms:.3f} ms/step, "
               f"{1e3 * b_train / ms:.1f} img/s at b={b_train} "
               f"({card})")
+
+    lap("5")
 
     # ---- 8. stage 1 at full width and its hand-off into stage 2 ----
     cfg1 = make_cfg(STAGE1_CONFIG)
@@ -1382,6 +1769,8 @@ def main() -> int:
                 == 2):
             raise AssertionError(f"2 stage-2 steps after the hand-off "
                                  f"launched {counts}")
+
+    lap("8")
 
     # ---- 9. stage 2 from DREAM-layout files at full width ----
     from horopose_tpu_torch.pipelines.common import get_dataloaders
@@ -1428,7 +1817,42 @@ def main() -> int:
             raise AssertionError(f"test_network: {n_test} batches and "
                                  f"2 x {FPS_ITERS + 1} timed forwards "
                                  f"launched {counts}")
+        stage2_ckpt = os.path.join(run["folder"], "ckpt",
+                                   "trained_weights.pk")
         del run, loaders
+        collect_garbage("after phase 9", card)
+
+        lap("9")
+
+        # ---- 10. stage 3 (sim2real) at full width ----
+        cfg3, loaders3, teacher = stage3_setup(tmp, stage2_ckpt, device,
+                                               card)
+        lap("10 set-up")
+        reset_counts()
+        run3 = stage3_train(cfg3, loaders3, teacher, device, card,
+                            os.path.join(tmp, "experiments"))
+        counts = read_counts("stage 3")
+        lap("10 epoch")
+        n_steps3 = len(loaders3["train"])
+        n_val3 = -(-STAGE3_FRAMES // int(cfg3.batch_size))
+        # the tracked-view pass and the validation each run the forward
+        # once a batch; the tracked renders once for the <= 20 views
+        want3 = dict(soft_argmax_3d_fwd=n_steps3 + 2 * n_val3 + 1,
+                     soft_argmax_3d_bwd=n_steps3)
+        if any(counts[k] != v for k, v in want3.items()):
+            raise AssertionError(f"stage 3: {n_steps3} steps, {n_val3} "
+                                 f"validation batches: launches {counts}, "
+                                 f"want {want3}")
+        stage3 = stage3_measure(cfg3, run3, loaders3, teacher, device, card,
+                                lap)
+        cross = compare_sim2real_card_cpu(cfg3, loaders3, stage2_ckpt,
+                                          device, card)
+        lap("10 card vs CPU")
+        stage3.update(epoch_s=run3["epoch_s"], launches=counts, cross=cross)
+        del run3, loaders3, teacher
+        collect_garbage("after phase 10", card)
+
+    lap("10")
 
     # ---- 6. float32 comparisons, TF32 off everywhere ----
     torch.backends.cudnn.allow_tf32 = False
@@ -1440,6 +1864,8 @@ def main() -> int:
     compare_train_steps(cfg, train_sd, batch, device)
     compare_train_card_cpu(cfg, device, SEED + 4)
     compare_depthnet_card_cpu(cfg1, device, SEED + 5)
+
+    lap("6")
 
     # ---- 7. summary ----
     def kernel_line(name, source, replaces, rows, launches, shape, tol,
@@ -1491,7 +1917,8 @@ def main() -> int:
                     device_kernels=["soft_argmax_3d_fwd_kernel",
                                     "soft_argmax_3d_merge_kernel"],
                     stage2_from_files=dict(loader_alone=loader_alone,
-                                           **files, test=harness)),
+                                           **files, test=harness),
+                    stage3=stage3),
         kernel_line("soft_argmax_3d_bwd", sam_src,
                     "horopose_tpu/ops/integral_pallas.py:56", bwd_rows,
                     bwd_launches, [b_train, *cell], dx_tol),

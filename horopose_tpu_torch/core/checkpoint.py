@@ -6,10 +6,14 @@ improved and when the file on disk is from an older epoch (the guard
 against a restarted run overwriting a newer checkpoint). File names keep
 the `curr_best_*_DATASET_model.pk` templates.
 
-The format is the port's own: `torch.save` of {epoch, metric, model,
-optimizer, scheduler, ...} (state dicts), written to a temporary file and
-renamed. The JAX package writes flax msgpack, which the port cannot read
-without flax; reading JAX checkpoints is ROADMAP queue 1 item 4.
+The port writes its own format: `torch.save` of {epoch, metric, model,
+optimizer, scheduler, ...} (state dicts), to a temporary file renamed into
+place. It also reads the JAX package's checkpoints, flax msgpack files of
+{epoch, metric, params, batch_stats, opt_state, step, ...}, with the
+`msgpack` module alone (`read_flax_msgpack`), and takes their weights
+through `tools/jax_weights.py` (`model_state_dict`). The optax optimizer
+state of a JAX run is not carried into `torch.optim` (ROADMAP queue 1
+item 4 left it out).
 """
 
 from __future__ import annotations
@@ -17,10 +21,15 @@ from __future__ import annotations
 import dataclasses
 import os
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch import nn
+
+# flax.serialization's msgpack ext codes
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+_CHUNKED = "__msgpack_chunked_array__"
 
 REAL_DATASETS = ("azure", "kinect", "realsense", "orb")
 
@@ -49,21 +58,87 @@ def save_checkpoint_file(path: str, *, epoch: int, metric: float,
     os.replace(tmp, path)
 
 
+def _ndarray(data: bytes) -> np.ndarray:
+    import msgpack
+    shape, dtype, buf = msgpack.unpackb(data, raw=True)
+    dtype = dtype.decode()
+    if dtype == "bfloat16":       # numpy has none: widen the bits to f32
+        bits = np.frombuffer(buf, np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buf, np.dtype(dtype)).reshape(shape).copy()
+
+
+def _ext_hook(code: int, data: bytes):
+    import msgpack
+    if code == _EXT_NDARRAY:
+        return _ndarray(data)
+    if code == _EXT_COMPLEX:
+        re, im = msgpack.unpackb(data)
+        return complex(re, im)
+    if code == _EXT_NPSCALAR:
+        return _ndarray(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def _unchunk(tree):
+    """Rebuild the arrays flax splits into {'__msgpack_chunked_array__',
+    'shape', 'chunks'} dicts (arrays over 2^30 bytes)."""
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNKED in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def read_flax_msgpack(data: bytes) -> Dict[str, Any]:
+    """`flax.serialization.msgpack_restore` without flax: nested dicts of
+    numpy arrays and scalars."""
+    import msgpack
+    return _unchunk(msgpack.unpackb(data, ext_hook=_ext_hook, raw=False))
+
+
+def is_jax_payload(payload: Mapping) -> bool:
+    """A JAX checkpoint holds flax `params`; the port's holds `model`."""
+    return "params" in payload and "model" not in payload
+
+
 def load_checkpoint_file(path: str) -> Dict[str, Any]:
-    """The payload, its tensors on the CPU. A file that `torch.save` did
-    not write (such as the JAX package's flax msgpack checkpoints) raises
-    NotImplementedError."""
-    if not zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path} is not a checkpoint of the port (torch.save); reading "
-            f"the JAX package's flax msgpack checkpoints is not ported yet "
-            f"(ROADMAP queue 1 item 4)")
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """The payload: the port's (a zip that `torch.save` wrote), its tensors
+    on the CPU, or the JAX package's (flax msgpack), its arrays numpy."""
+    if zipfile.is_zipfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    with open(path, "rb") as f:
+        return read_flax_msgpack(f.read())
+
+
+def model_state_dict(payload: Mapping, model: nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+    """The payload's weights as `model`'s state dict: the port's `model`
+    entry, or a JAX payload's `params` and `batch_stats` mapped by
+    `tools/jax_weights.state_dict_from_jax`."""
+    if not is_jax_payload(payload):
+        return payload["model"]
+    from horopose_tpu_torch.tools.jax_weights import state_dict_from_jax
+    return state_dict_from_jax(model, payload["params"],
+                               payload.get("batch_stats") or {})
 
 
 def restore_state(state: TrainState, payload: Dict) -> TrainState:
     """Load a payload's model, optimizer and scheduler state into `state`
-    in place (strict: every key must match)."""
+    in place (strict: every key must match). A JAX payload restores the
+    model alone: with an optimizer to restore it raises, as the port does
+    not carry optax's Adam moments into torch.optim."""
+    if is_jax_payload(payload):
+        if state.optimizer is not None:
+            raise NotImplementedError(
+                "resuming a JAX run: its optax Adam moments are not "
+                "carried into torch.optim (left out of ROADMAP queue 1 "
+                "item 4); start from its weights instead (a weights-only "
+                "hand-off such as pretrained_weight_on_synth)")
+        state.model.load_state_dict(model_state_dict(payload, state.model))
+        return state
     state.model.load_state_dict(payload["model"])
     for name in ("optimizer", "scheduler"):
         part = getattr(state, name)

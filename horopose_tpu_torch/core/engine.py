@@ -13,9 +13,9 @@ updates the parameters. Batches keep the JAX package's layout: nested
 `root` / `other` dicts of tensors with uint8 NHWC images, as
 `batch_to_torch` makes them from the JAX `DataLoader`'s numpy batches.
 
-Not ported yet: the PnP pseudo-ground truth of the real sets (ROADMAP
-queue 1 item 6), and the quaternion and multi-keypoint variants (queue 1
-item 5).
+On a real set the rotation ground truth is PnP of the annotated 2D
+keypoints against FK (`pnp_fn`, `ops/pnp.py`). Not ported yet: the
+quaternion and multi-keypoint variants (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -110,11 +110,9 @@ def clip_by_global_norm_(params: Sequence[nn.Parameter], max_norm: float
 
 def prepare_gt(cfg, robot: Robot, batch: Batch,
                pnp_fn: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
-    """Assemble the ground truth on the batch's device."""
-    if pnp_fn is not None:
-        raise NotImplementedError(
-            "PnP pseudo-ground truth for real sets is not ported yet "
-            "(ROADMAP queue 1 item 6: ops/pnp.py)")
+    """Assemble the ground truth on the batch's device. pnp_fn, given on a
+    real set, replaces TCO's rotation by PnP of the annotated 2D keypoints
+    (`keypoints_2d_original`) against FK world points, at `K_original`."""
     if int(cfg.rotation_dim) != 6:
         raise NotImplementedError(
             f"rotation_dim {cfg.rotation_dim} needs rotmat_to_quat, not "
@@ -131,6 +129,10 @@ def prepare_gt(cfg, robot: Robot, batch: Batch,
 
     gt_rot = rotmat_to_rot6d(TCO[:, :3, :3])
     gt_trans = TCO[:, :3, 3]
+    if pnp_fn is not None:
+        R_pnp, _ = pnp_fn(batch["keypoints_2d_original"].float(),
+                          robot.get_keypoints_only_fk(gt_pose), K_original)
+        gt_rot = rotmat_to_rot6d(R_pnp)
     ref = int(cfg.reference_keypoint_id)
     if ref == 0:
         gt_root_trans = gt_trans

@@ -47,6 +47,7 @@ class RootNet(nn.Module):
         else:
             raise NotImplementedError(backbone_name)
         self.is_resnet = backbone_name in _RESNETS
+        self.backbone_name = backbone_name
         if pred_xy and not self.is_resnet:
             raise ValueError("pred_xy reads the resnet feature map; the "
                              f"{backbone_name} backbone gives a pooled feature")

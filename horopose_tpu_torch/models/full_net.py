@@ -79,6 +79,8 @@ class FullNet(nn.Module):
         self.fix_root = fix_root
         self.n_iter = n_iter
         self.rotation_dim = rotation_dim
+        self.backbone_name = backbone_name
+        self.rootnet_backbone_name = rootnet_backbone_name
         # None: the CUDA kernel on a CUDA tensor, the plain version on CPU;
         # False: the plain version (tests and chip_smoke.py compare with it)
         self.use_kernel = use_kernel

@@ -1,6 +1,7 @@
 """Rotation representation conversions, batched over leading dims.
 
-Port of the serving and training subset of `horopose_tpu/ops/rotations.py`.
+Port of the serving and training subset of `horopose_tpu/ops/rotations.py`,
+and the axis-angle maps that PnP (`ops/pnp.py`) works in.
 """
 
 from __future__ import annotations
@@ -108,3 +109,49 @@ def rotmat_to_rot(matrix: torch.Tensor, dim: int) -> torch.Tensor:
             "quaternion-from-matrix is not ported yet (ROADMAP queue 1 "
             "item 5: the non-flagship FullNet flags)")
     raise ValueError(f"unsupported rotation dim {dim}")
+
+
+def axis_angle_to_rotmat(aa: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Axis-angle (..., 3) -> rotation matrix (..., 3, 3), Rodrigues formula.
+
+    Small angles (theta^2 <= eps) take the first-order Taylor expansion, so
+    gradients stay finite at the origin. Reductions keep their dim: under
+    `torch.func.jacfwd` a 0-dim tensor combined with a Python float turns
+    float64."""
+    theta2 = (aa * aa).sum(-1, keepdim=True)
+    theta = torch.sqrt(theta2 + 1e-20)
+    # the direction of a tiny angle is masked out below; guard it anyway
+    w = aa / torch.clamp(theta, min=eps)
+    wx, wy, wz = w[..., 0:1], w[..., 1:2], w[..., 2:3]
+    c, s = torch.cos(theta), torch.sin(theta)
+    one_c = 1.0 - c
+    full = torch.stack([
+        torch.cat([c + wx * wx * one_c, wx * wy * one_c - wz * s,
+                   wy * s + wx * wz * one_c], -1),
+        torch.cat([wz * s + wx * wy * one_c, c + wy * wy * one_c,
+                   -wx * s + wy * wz * one_c], -1),
+        torch.cat([-wy * s + wx * wz * one_c, wx * s + wy * wz * one_c,
+                   c + wz * wz * one_c], -1),
+    ], dim=-2)
+    rx, ry, rz = aa[..., 0:1], aa[..., 1:2], aa[..., 2:3]
+    ones = torch.ones_like(rx)
+    taylor = torch.stack([
+        torch.cat([ones, -rz, ry], -1),
+        torch.cat([rz, ones, -rx], -1),
+        torch.cat([-ry, rx, ones], -1),
+    ], dim=-2)
+    return torch.where((theta2 > eps)[..., None], full, taylor)
+
+
+def rotmat_to_axis_angle(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3), the log map."""
+    tr = torch.diagonal(matrix, dim1=-2, dim2=-1).sum(-1, keepdim=True)
+    cos = torch.clamp((tr - 1.0) / 2.0, -1.0 + 1e-7, 1.0 - 1e-7)
+    theta = torch.arccos(cos)
+    axis = torch.stack([matrix[..., 2, 1] - matrix[..., 1, 2],
+                        matrix[..., 0, 2] - matrix[..., 2, 0],
+                        matrix[..., 1, 0] - matrix[..., 0, 1]], dim=-1)
+    sin = torch.sin(theta)
+    scale = torch.where(sin.abs() < 1e-6, torch.full_like(sin, 0.5),
+                        theta / (2.0 * sin + 1e-20))
+    return axis * scale

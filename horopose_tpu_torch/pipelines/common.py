@@ -2,7 +2,8 @@
 the DREAM data loaders.
 
 Port of `horopose_tpu/pipelines/common.py`: `build_fullnet`, `make_robot`,
-`crop_sizes`, `set_seed`, `make_pnp_fn` and `get_dataloaders` (the train
+`crop_sizes`, `set_seed`, `make_pnp_fn`, `apply_pretrained_backbone` (the
+ImageNet backbone loader) and `get_dataloaders` (the train
 set from cfg.train_ds_names; the test sets found by the train_dr -> test_dr
 / test_photo naming convention, plus the four real Panda camera sets when
 they are on disk). The loaders run in one process: the rank-strided
@@ -90,20 +91,18 @@ class FullNetConfig:
     kp2d_int_loss_weight: float = 10.0
     kp3d_int_loss_weight: float = 10.0
     align_3d_loss_weight: float = 0.0
-    # a stage-1 DepthNet checkpoint for the rootnet branch
-    # (pipelines/train_full.py::init_fullnet_state)
+    # a stage-1 DepthNet checkpoint for the rootnet branch, and ImageNet
+    # weights for either backbone (pipelines/train_full.py::
+    # init_fullnet_state)
     pretrained_rootnet: Optional[str] = None
+    backbone_pretrained: Optional[str] = None
+    rootnet_backbone_pretrained: Optional[str] = None
 
     @classmethod
     def from_cfg(cls, cfg: Mapping) -> "FullNetConfig":
         """The fields' values from a `config.make_cfg` config, each coerced
         to its field's type (`image_size : 256.0` -> 256); keys without a
-        field are not read. ImageNet backbone weights are not ported yet."""
-        for key in ("backbone_pretrained", "rootnet_backbone_pretrained"):
-            if cfg.get(key):
-                raise NotImplementedError(
-                    f"{key}: loading ImageNet backbone weights is not "
-                    f"ported yet (ROADMAP queue 1 item 4)")
+        field are not read."""
         values = {}
         if cfg.get("other_image_size"):
             # the model's heatmap geometry follows the regression crop
@@ -186,13 +185,75 @@ def set_seed(seed: int = C.GLOBAL_SEED):
 
 def make_pnp_fn(ds_names):
     """The pseudo-ground-truth rotation of a set: None for a synthetic set,
-    where TCO is the rotation ground truth. The real sets need PnP of the
-    annotated 2D keypoints against FK 3D points, not ported yet."""
+    where TCO is the rotation ground truth; for a real set `ops.pnp.pnp`,
+    PnP of the annotated 2D keypoints against FK 3D points. Training and
+    validation key it on the train set's name, the test harness on the set
+    under evaluation."""
     if "synth" in str(ds_names):
         return None
-    raise NotImplementedError(
-        f"{ds_names}: a real set needs the PnP pseudo-ground truth "
-        f"(ops/pnp.py), not ported yet (ROADMAP queue 1 item 6)")
+    from horopose_tpu_torch.ops.pnp import pnp
+    return pnp
+
+
+def _backbone_artifact(path: str, backbone_name: str):
+    """A backbone weight file -> (state dict under the backbone's own
+    names, source leaves that have no name there): a `.msgpack` of flax
+    variables (`tools/convert.py`), or a raw torch state dict (`.pth`,
+    `.pt`, `.pk`), whose keys are already the port's (a `state_dict` or
+    `model_state_dict` entry is unwrapped)."""
+    if path.endswith(".msgpack"):
+        from horopose_tpu_torch.core.checkpoint import read_flax_msgpack
+        from horopose_tpu_torch.tools.jax_weights import \
+            backbone_state_dict_from_jax
+        with open(path, "rb") as f:
+            tree = read_flax_msgpack(f.read())
+        return backbone_state_dict_from_jax(tree.get("params", {}),
+                                            tree.get("batch_stats", {}),
+                                            backbone_name)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model_state_dict", "state_dict"):
+        if isinstance(payload, dict) and key in payload:
+            payload = payload[key]
+    return {k: v for k, v in payload.items()
+            if isinstance(v, torch.Tensor)}, []
+
+
+def apply_pretrained_backbone(model: nn.Module, weights_path: str,
+                              backbone_name: str, dst_prefix: str,
+                              tag: str = "") -> Tuple[int, int, list]:
+    """Initialise the backbone `dst_prefix` of `model` (e.g.
+    "reg_backbone") from pretrained weights, in place. The merge is
+    lenient, as the reference's strict=False load: every source tensor
+    whose name exists under the prefix with the same shape is copied, the
+    rest is skipped (BatchNorm's `num_batches_tracked` is not counted).
+    Returns (parameters loaded, BatchNorm statistics loaded, skipped
+    names); raises when nothing matched."""
+    src, skipped = _backbone_artifact(weights_path, backbone_name)
+    target = model.state_dict()
+    if not any(k.startswith(dst_prefix + ".") for k in target):
+        raise KeyError(f"no backbone {dst_prefix!r} in the model")
+    n_params = n_stats = 0
+    skipped = list(skipped)
+    for name, value in src.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        key = f"{dst_prefix}.{name}"
+        if key not in target or target[key].shape != value.shape:
+            skipped.append(name)
+            continue
+        target[key] = value.to(target[key].dtype)
+        if name.endswith(("running_mean", "running_var")):
+            n_stats += 1
+        else:
+            n_params += 1
+    if n_params == 0:
+        raise ValueError(
+            f"pretrained backbone {weights_path!r} matched ZERO tensors of "
+            f"{dst_prefix!r}: wrong backbone_name or artifact?")
+    model.load_state_dict(target)
+    print(f"[pretrained{tag}] {weights_path} -> {dst_prefix}: {n_params} "
+          f"params + {n_stats} batch_stats loaded, {len(skipped)} skipped")
+    return n_params, n_stats, skipped
 
 
 def _resolve_cache_dir(cfg, path) -> str:

@@ -16,10 +16,11 @@ CPU device the host clock times them. The eval loop's wall time
 (the batch's copy, the forward, the predictions' copy back and the host
 metrics) is reported on its own line.
 
-Not ported yet: the plots (`draw_add_curve`, `visualize_extremes`, which
-need `core/vis.py`, ROADMAP queue 1 item 8), the PnP pseudo-ground truth
-of the real sets (queue 1 item 6) and reading the JAX package's flax
-checkpoints (queue 1 item 4).
+The checkpoint is the port's or one the JAX package wrote (flax msgpack,
+`core/checkpoint.py`); a real set's rotation ground truth is PnP of its
+annotated 2D keypoints against FK (`make_pnp_fn`). Not ported yet: the
+plots (`draw_add_curve`, `visualize_extremes`, which need `core/vis.py`,
+ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ import numpy as np
 import torch
 
 from horopose_tpu_torch.config import make_cfg
-from horopose_tpu_torch.core.checkpoint import load_checkpoint_file
+from horopose_tpu_torch.core.checkpoint import (is_jax_payload,
+                                                load_checkpoint_file,
+                                                model_state_dict)
 from horopose_tpu_torch.core.engine import build_full_eval_step
 from horopose_tpu_torch.core.loggers import AverageMeter
 from horopose_tpu_torch.core.metrics import (ADD_THRESHOLDS_MM,
@@ -117,8 +120,10 @@ def _load_weights(model, ckpt_path: str) -> int:
     """Load the checkpoint's model weights; returns its epoch (-1 when it
     records none)."""
     payload = load_checkpoint_file(ckpt_path)
-    model.load_state_dict(payload["model"])
-    if "optimizer" not in payload:
+    model.load_state_dict(model_state_dict(payload, model))
+    if is_jax_payload(payload):
+        print(f"[test] loaded the JAX package's checkpoint {ckpt_path}")
+    elif "optimizer" not in payload:
         print(f"[test] loaded weights-only checkpoint {ckpt_path}")
     return int(payload.get("epoch", -1))
 

@@ -36,7 +36,8 @@ from horopose_tpu_torch.core.loggers import (AverageMeter,
                                              create_logger)
 from horopose_tpu_torch.models.depth_net import RootNet
 from horopose_tpu_torch.parallel.prefetch import prefetch_to_device
-from horopose_tpu_torch.pipelines.common import get_dataloaders
+from horopose_tpu_torch.pipelines.common import (apply_pretrained_backbone,
+                                                 get_dataloaders)
 
 CKPT_TEMPLATE = "curr_best_root_depth(wholistic)_DATASET_model.pk"
 
@@ -61,10 +62,6 @@ def train_depthnet(cfg, loaders: Optional[Mapping] = None,
     """Train stage 1 as the config says, its experiment folder under
     `exp_root`; returns the final TrainState. `loaders` defaults to
     `get_dataloaders(cfg, device)`."""
-    if cfg.get("backbone_pretrained"):
-        raise NotImplementedError("backbone_pretrained: loading ImageNet "
-                                  "backbone weights is not ported yet "
-                                  "(ROADMAP queue 1 item 4)")
     if loaders is None:
         loaders = get_dataloaders(cfg, device)
     _, ckpt_folder, _, writer = create_logger(cfg, exp_root)
@@ -80,7 +77,12 @@ def _train(cfg, loaders, max_epochs, max_steps_per_epoch, device, dtype,
     train_loader = loaders["train"]
     steps_per_epoch = max(len(train_loader), 1)
 
-    model = build_rootnet(cfg, dtype).to(device)
+    model = build_rootnet(cfg, dtype)
+    if cfg.get("backbone_pretrained"):
+        apply_pretrained_backbone(model, cfg.backbone_pretrained,
+                                  cfg.backbone_name, "backbone",
+                                  tag="/depthnet")
+    model = model.to(device)
     optimizer, scheduler = make_optimizer(cfg, model.parameters(),
                                           steps_per_epoch)
     state = TrainState(model, optimizer, scheduler)

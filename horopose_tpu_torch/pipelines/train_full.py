@@ -5,8 +5,9 @@ synthetic set, validate each epoch on every test set (dr, photo, the four
 real sets) with the full metric battery (ADD and PCK AUCs for both the FK
 and the integral keypoints, per-keypoint and per-joint meters, about 40
 scalars), keep the best-AUC checkpoint per dataset, and resume from an
-experiment's checkpoint. `init_fullnet_state` is the hand-off from a
-stage-1 DepthNet checkpoint (`pretrained_rootnet`).
+experiment's checkpoint. `init_fullnet_state` applies ImageNet backbone
+weights and the hand-off from a stage-1 DepthNet checkpoint
+(`pretrained_rootnet`), the port's or the JAX package's.
 
 Batches come from the DREAM loaders (`pipelines.common.get_dataloaders`)
 unless the caller passes its own, and reach the card through
@@ -28,7 +29,7 @@ from torch import nn
 
 from horopose_tpu_torch import constants as C
 from horopose_tpu_torch.core.checkpoint import (BestCheckpointKeeper,
-                                                TrainState,
+                                                TrainState, is_jax_payload,
                                                 load_checkpoint_file,
                                                 restore_state)
 from horopose_tpu_torch.core.engine import (build_full_eval_step,
@@ -42,10 +43,13 @@ from horopose_tpu_torch.core.metrics import (ADD_THRESHOLDS_MM,
                                              compute_metrics_batch,
                                              summary_add_pck)
 from horopose_tpu_torch.parallel.prefetch import prefetch_to_device
-from horopose_tpu_torch.pipelines.common import (FullNetConfig, build_fullnet,
+from horopose_tpu_torch.pipelines.common import (FullNetConfig,
+                                                 apply_pretrained_backbone,
+                                                 build_fullnet,
                                                  get_dataloaders,
                                                  make_pnp_fn, make_robot,
                                                  set_seed)
+from horopose_tpu_torch.tools.jax_weights import rootnet_state_dict_from_jax
 
 # (stage-1 RootNet prefix, stage-2 FullNet prefix)
 HANDOFF = (("backbone", "rootnet_backbone"), ("depth_layer", "depth_layer"))
@@ -56,22 +60,42 @@ LOSS_TAGS = ["loss_joint", "loss_rot", "loss_trans", "loss_uv", "loss_depth",
 
 
 def init_fullnet_state(cfg, model: nn.Module) -> nn.Module:
-    """Apply the config's stage-1 checkpoint to `model` (a FullNet) in
-    place: a `pretrained_rootnet` DepthNet checkpoint's `backbone.*` and
-    `depth_layer.*` tensors, parameters and BatchNorm buffers alike, replace
-    FullNet's `rootnet_backbone.*` and `depth_layer.*`. The two backbones
-    must be the same architecture: every key must have its counterpart of
-    the same shape, or this raises. Prints the copied pairs."""
-    for key in ("backbone_pretrained", "rootnet_backbone_pretrained"):
+    """Apply the config's pretrained weights to `model` (a FullNet) in
+    place, in the JAX package's order: ImageNet weights for either backbone
+    (`backbone_pretrained`, `rootnet_backbone_pretrained`, through
+    `apply_pretrained_backbone`), then a `pretrained_rootnet` DepthNet
+    checkpoint, the port's or the JAX package's, whose `backbone.*` and
+    `depth_layer.*` tensors, parameters and BatchNorm buffers alike,
+    replace FullNet's `rootnet_backbone.*` and `depth_layer.*`. The two
+    backbones must be the same architecture: every key must have its
+    counterpart of the same shape, or this raises. Prints the copied
+    pairs."""
+    for key, name, dst in (
+            ("backbone_pretrained", "backbone_name", "reg_backbone"),
+            ("rootnet_backbone_pretrained", "rootnet_backbone_name",
+             "rootnet_backbone")):
         if getattr(cfg, key, None):
-            raise NotImplementedError(f"{key}: loading ImageNet backbone "
-                                      f"weights is not ported yet (ROADMAP "
-                                      f"queue 1 item 4)")
+            apply_pretrained_backbone(model, getattr(cfg, key),
+                                      getattr(cfg, name), dst,
+                                      tag="/train_full")
     path = getattr(cfg, "pretrained_rootnet", None)
     if not path:
         return model
-    pre = load_checkpoint_file(path)["model"]
+    pre = load_checkpoint_file(path)
     target = model.state_dict()
+    if is_jax_payload(pre):
+        # the JAX DepthNet's auto-named backbone becomes backbone.*; flax
+        # counts no BatchNorm batches, so those counters start at 0
+        pre = rootnet_state_dict_from_jax(pre["params"],
+                                          pre.get("batch_stats") or {},
+                                          cfg.rootnet_backbone_name)
+        for k, v in target.items():
+            if (k.startswith("rootnet_backbone.")
+                    and k.endswith("num_batches_tracked")):
+                pre["backbone" + k[len("rootnet_backbone"):]] = \
+                    torch.zeros_like(v)
+    else:
+        pre = pre["model"]
     copied = []
     for src, dst in HANDOFF:
         src_keys = {k for k in pre if k.startswith(src + ".")}

@@ -8,6 +8,7 @@ original frame.
 
 Usage:
     pred = Predictor(FullNetConfig(), state_dict, device="cuda")
+    pred = Predictor.from_experiment("experiments/<exp>")   # JAX or port
     out = pred(images_uint8, K, bboxes=det_bboxes)   # (B, H, W, 3), (B, 3, 3)
     out["joints"], out["rotation"], out["translation"],
     out["keypoints_3d"], out["keypoints_2d"]
@@ -15,6 +16,7 @@ Usage:
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -42,6 +44,31 @@ class Predictor:
         # the two crops share the bbox and differ only in resolution
         self.root_size, self.size = crop_sizes(config)
         self.ref = int(config.reference_keypoint_id)
+
+    @classmethod
+    def from_experiment(cls, exp_path: str,
+                        ckpt_name: str = "curr_best_auc(add)_model.pk",
+                        device="cuda", dtype: torch.dtype = torch.float32
+                        ) -> "Predictor":
+        """The model of an experiment directory, the port's or the JAX
+        package's: its `config.yaml` and its checkpoint `ckpt/<ckpt_name>`
+        (random weights from GLOBAL_SEED, with a warning, when that file
+        is missing)."""
+        from horopose_tpu_torch.config import make_cfg
+        from horopose_tpu_torch.core.checkpoint import (load_checkpoint_file,
+                                                        model_state_dict)
+        from horopose_tpu_torch.pipelines.train_full import seeded_fullnet
+        cfg = FullNetConfig.from_cfg(
+            make_cfg(os.path.join(exp_path, "config.yaml")))
+        model = seeded_fullnet(cfg)
+        ckpt_path = os.path.join(exp_path, "ckpt", ckpt_name)
+        if os.path.exists(ckpt_path):
+            state_dict = model_state_dict(load_checkpoint_file(ckpt_path),
+                                          model)
+        else:
+            print(f"[predictor] WARNING: {ckpt_path} missing, random init")
+            state_dict = model.state_dict()
+        return cls(cfg, state_dict, device=device, dtype=dtype)
 
     def preprocess(self, images: np.ndarray, K: np.ndarray,
                    bboxes: Optional[np.ndarray] = None

@@ -2,8 +2,9 @@
 
 Port of `scripts/train.py`: the config's flags choose the pipeline, in
 the order use_rootnet_with_reg_int_shared_backbone (stage 2, the full
-network) > use_rootnet (stage 1, DepthNet) > use_sim2real (stage 3, not
-ported yet). It trains on the card; `--device cpu` asks for the CPU.
+network) > use_rootnet (stage 1, DepthNet) > use_sim2real (stage 3, the
+self-supervised sim2real fine-tuning). It trains on the card; `--device
+cpu` asks for the CPU.
 `compute_dtype : "bfloat16"` in the config trains under bfloat16 autocast.
 """
 
@@ -40,9 +41,10 @@ def main(argv=None):
         print("training with depthnet pipeline")
         train_depthnet(cfg, device=args.device, dtype=dtype)
     elif cfg.use_sim2real:
-        raise NotImplementedError(
-            "use_sim2real: the self-supervised sim2real pipeline is not "
-            "ported yet (ROADMAP queue 1 item 7)")
+        from horopose_tpu_torch.pipelines.train_sim2real import \
+            train_sim2real
+        print("training with sim2real pipeline (self-supervised)")
+        train_sim2real(cfg, device=args.device, dtype=dtype)
     else:
         raise ValueError("no pipeline selected by the config flags")
 

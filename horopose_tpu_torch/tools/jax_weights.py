@@ -1,4 +1,5 @@
-"""JAX (flax) FullNet and RootNet variables -> the port's `state_dict`s.
+"""JAX (flax) variables -> the port's `state_dict`s: FullNet, RootNet, a
+standalone backbone, and the sim2real segmentation teacher.
 
 The inverses of `horopose_tpu/tools/torch_weights.py::
 convert_fullnet_reference_checkpoint` and `convert_rootnet_reference_
@@ -151,10 +152,23 @@ def _rootnet_pairs(backbone_name: str) -> Iterator[_Pair]:
     yield "dense_as_conv", "offset_layer", ("offset_layer",)
 
 
-def _state_dict_from_jax(pairs: Iterator[_Pair], params: Mapping,
-                         batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """Every pair whose flax module is present -> its torch tensors (float32
-    CPU); raises if a flax leaf is left over."""
+def _seg_teacher_pairs() -> Iterator[_Pair]:
+    yield from _resnet_pairs((3, 4, 6, 3), True, "backbone.", ("backbone",))
+    yield "deconv", "read_out", ("read_out",)
+    # ASPP: Conv_0..4 are the 1x1, the three atrous and the pooling
+    # branches, Conv_5 the projection (flax numbers each class apart)
+    for i in range(6):
+        tk = f"aspp.branches.{i}" if i < 5 else "aspp.project"
+        yield "conv", f"{tk}.0", ("aspp", f"Conv_{i}")
+        yield "bn", f"{tk}.1", ("aspp", f"BatchNorm_{i}")
+    yield "conv", "cls_conv", ("cls_conv",)
+    yield "bn", "cls_bn", ("cls_bn",)
+    yield "conv", "cls_final", ("cls_final",)
+
+
+def _convert(pairs: Iterator[_Pair], params: Mapping, batch_stats: Mapping):
+    """Every pair whose flax module is present -> (its torch tensors,
+    float32 CPU; the flax leaves no pair took, as path tuples)."""
     sd: Dict[str, np.ndarray] = {}
     used = set()
 
@@ -191,11 +205,18 @@ def _state_dict_from_jax(pairs: Iterator[_Pair], params: Mapping,
             if ("params",) + p not in used]
     left += [("batch_stats",) + p for p in _leaf_paths(batch_stats)
              if ("batch_stats",) + p not in used]
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}, left
+
+
+def _state_dict_from_jax(pairs: Iterator[_Pair], params: Mapping,
+                         batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """`_convert`, raising if a flax leaf is left over."""
+    sd, left = _convert(pairs, params, batch_stats)
     if left:
         raise ValueError(f"{len(left)} JAX leaves have no torch key, e.g. "
                          f"{'/'.join(left[0])}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in sd.items()}
+    return sd
 
 
 def fullnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
@@ -220,3 +241,39 @@ def rootnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
     `depth_bn{i}`, and the Dense depth and offset heads become 1x1 convs."""
     return _state_dict_from_jax(_rootnet_pairs(backbone_name), params,
                                 batch_stats)
+
+
+def backbone_state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                                 backbone_name: str):
+    """A standalone backbone's flax variables (`tools/convert.py`'s
+    msgpack: conv1, layer1_0, ... at the top) -> (the backbone's state dict
+    under the port's names, the flax leaves no torch key took)."""
+    sd, left = _convert(_backbone_pairs(backbone_name, "", ()), params,
+                        batch_stats)
+    return sd, ["/".join(p) for p in left]
+
+
+def seg_teacher_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """The JAX KeypointSegNet's variables (`backbone/layer{s}_{i}/Conv_*`,
+    `read_out`, `aspp/Conv_*`, `cls_*`) -> the port's KeypointSegNet state
+    dict (`models/deeplab.py`): the deconv read-out un-flipped, the ASPP
+    branches in creation order."""
+    return _state_dict_from_jax(_seg_teacher_pairs(), params, batch_stats)
+
+
+def state_dict_from_jax(model, params: Mapping, batch_stats: Mapping
+                        ) -> Dict[str, torch.Tensor]:
+    """The flax variables of the JAX twin of `model` (a FullNet or a
+    RootNet of the port) -> `model`'s state dict, the architecture read
+    from the model."""
+    from horopose_tpu_torch.models.depth_net import RootNet
+    from horopose_tpu_torch.models.full_net import FullNet
+    if isinstance(model, FullNet):
+        return fullnet_state_dict_from_jax(params, batch_stats,
+                                           model.backbone_name,
+                                           model.rootnet_backbone_name)
+    if isinstance(model, RootNet):
+        return rootnet_state_dict_from_jax(params, batch_stats,
+                                           model.backbone_name)
+    raise TypeError(f"no JAX weight map for {type(model).__name__}")

@@ -11,8 +11,8 @@ FK(gt_joints) placed at TCO reproduces the annotations. The draws from the
 seed are the JAX writer's, so both write the same jpgs and the same
 annotations up to float32 FK rounding.
 
-The rendered images (`render_images=True`) need the robot meshes and the
-shaded renderer, which are not ported yet.
+The rendered images (`render_images=True`) need the shaded renderer
+(`core/shaded_render.py`), which is not ported yet.
 """
 
 from __future__ import annotations
@@ -77,9 +77,9 @@ def make_synthetic_dream_dataset(base_dir, robot_type="panda", n_images=6,
     most view_jitter_deg."""
     if render_images:
         raise NotImplementedError(
-            "render_images=True needs the robot meshes and the shaded "
-            "renderer (kinematics/meshes.py and core/shaded_render.py), "
-            "not ported yet (ROADMAP queue 1 items 7-8)")
+            "render_images=True needs the shaded renderer "
+            "(core/shaded_render.py), not ported yet (ROADMAP queue 1 "
+            "item 8)")
     from horopose_tpu_torch.data.dream import (R_NORMAL_UE,
                                                _quat_xyzw_to_rotmat)
     from horopose_tpu_torch.kinematics.robot import Robot

@@ -226,10 +226,9 @@ def test_prepare_gt_matches_jax(bbox, joint_mask, ref_kp, np_batch, robots):
 
 
 def test_prepare_gt_rejects_unported_options(np_batch, robots):
-    _, cfg = _cfgs()
+    """rotation_dim 4 is not ported; the PnP ground truth of the real sets
+    is (tests/test_torch_port_pnp.py)."""
     batch = TE.batch_to_torch(np_batch, "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TE.prepare_gt(cfg, robots[1], batch, pnp_fn=lambda *a: None)
     _, cfg4 = _cfgs(rotation_dim=4)
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         TE.prepare_gt(cfg4, robots[1], batch)

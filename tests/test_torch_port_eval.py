@@ -286,21 +286,19 @@ def test_measure_forward_fps_times_the_three_forwards(one_thread):
 @pytest.mark.parametrize("config,pipeline", [
     ("configs/panda/full.yaml", "train_full"),
     ("configs/kuka/depthnet.yaml", "train_depthnet"),
-    ("configs/panda/self_supervised/synth.yaml", None),
+    ("configs/panda/self_supervised/synth.yaml", "train_sim2real"),
 ])
 def test_train_cli_picks_the_pipeline(config, pipeline, monkeypatch):
     import horopose_tpu_torch.pipelines.train_depthnet as TD
     import horopose_tpu_torch.pipelines.train_full as TF
+    import horopose_tpu_torch.pipelines.train_sim2real as TS
     calls = []
-    monkeypatch.setattr(TF, "train_full", lambda cfg, **kw: calls.append(
-        ("train_full", cfg.exp_name, kw)))
-    monkeypatch.setattr(TD, "train_depthnet", lambda cfg, **kw: calls.append(
-        ("train_depthnet", cfg.exp_name, kw)))
+    for module, name in ((TF, "train_full"), (TD, "train_depthnet"),
+                         (TS, "train_sim2real")):
+        monkeypatch.setattr(module, name,
+                            lambda cfg, _n=name, **kw: calls.append(
+                                (_n, cfg.exp_name, kw)))
     argv = ["--config", os.path.join(REPO, config), "--device", "cpu"]
-    if pipeline is None:
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            train_cli.main(argv)
-        return
     train_cli.main(argv)
     assert [c[0] for c in calls] == [pipeline]
     assert calls[0][2] == dict(device="cpu", dtype=torch.float32)

@@ -126,10 +126,9 @@ def test_fullnet_config_from_the_stage2_file(robot):
             assert v == ref[k], k
     if robot == "panda":
         assert cfg == FullNetConfig()   # the defaults are the panda flagship
-    bad = make_cfg(path)
-    bad.backbone_pretrained = "imagenet.pth"
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        FullNetConfig.from_cfg(bad)
+    pre = make_cfg(path)
+    pre.backbone_pretrained = "imagenet.pth"
+    assert FullNetConfig.from_cfg(pre).backbone_pretrained == "imagenet.pth"
 
 
 # ---- checkpoints and loggers ----
