@@ -84,20 +84,39 @@ Phases, each of which raises on failure:
      step's shapes, the teacher, PnP of 32 frames (its residual, the
      calls that synchronise, R against the CPU), a timed validation, and
      one b=2 step on the card against the CPU with TF32 off;
+  11. two variant FullNets at the flagship's full width with random
+     weights from a seed: V1 (add_fc, multi_kp over the 7 keypoints,
+     reg_joint_map with 256-wide joint convs, rot_iterative_matmul) and
+     V2 (direct_reg_rot, quaternion rotations). Each is served through
+     Predictor at b=1 and 128 in float32 beside phase 4's flagship,
+     trains the stage-2 step at b=64 on phase 5's batch (2 warm-ups, the
+     median of 5, one traced step for the device's busy time), and holds
+     its forward with TF32 off as phase 6 holds the flagship's (the
+     kernel against the plain soft-argmax, 2 rows against the CPU), every
+     output; V1 also one b=2 train step against the CPU. The soft-argmax kernels must
+     launch once a forward and once a backward on both paths. Then
+     `test_network` on phase 9's test set with the plots
+     (`visualization=True`; a missing matplotlib makes them no-ops, which
+     is said and is no failure) and a torch.profiler trace
+     (`profile_dir`), and one frame of the synthetic writer's shaded
+     render (`render_images=True`);
   7. one JSON line describing every kernel, and as the last line
      {"ok": true, "device": {...}}.
 
-They run in the order 1-5, 8, 9, 10, 6, 7: phases 8-10 keep cuDNN's
-default TF32 for float32, as phases 4 and 5 do, and phase 8's b=2
-comparison runs with phase 6's. Each phase prints its wall time. Each path's kernel launch counts are set to 0 just
-before it and read just after it; launches made to compare a kernel with
-its plain version are not counted.
+They run in the order 1-5, 8, 9, 10, 11, 6, 7: phases 8-11 keep cuDNN's
+default TF32 for float32, as phases 4 and 5 do (phase 11's comparisons
+turn it off for themselves), and phase 8's b=2 comparison runs with
+phase 6's. Each phase prints its wall time. Phases 9 and 10 close their
+loaders and print each close()'s time. Each path's kernel launch counts
+are set to 0 just before it and read just after it; launches made to
+compare a kernel with its plain version are not counted.
 
 It exits non-zero with no result when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib.util
@@ -547,7 +566,7 @@ def serve(predictors, batches, reps, card):
     return timings, forwards
 
 
-def breakdown(pred, b: int, card: str):
+def breakdown(pred, b: int, card: str, label: str = "") -> dict:
     """Where one request's time goes: host clock around preprocess and
     forward (each ending in a synchronise), and a torch.profiler trace of
     the same request for the device's busy time and its top kernels."""
@@ -576,7 +595,7 @@ def breakdown(pred, b: int, card: str):
     wall_ms = 1e3 * (t2 - t0)
     sam_ms = sum(e.self_device_time_total for e in events
                  if "soft_argmax" in e.key) / 1e3
-    print(f"breakdown {pred.model.dtype} b={b}: preprocess "
+    print(f"breakdown {label}{pred.model.dtype} b={b}: preprocess "
           f"{1e3 * (t1 - t0):.3f} ms, forward {1e3 * (t2 - t1):.3f} ms "
           f"(host clock); device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
           f"(idle share {1 - busy_ms / wall_ms:.3f}); soft_argmax kernel "
@@ -585,11 +604,15 @@ def breakdown(pred, b: int, card: str):
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5} "
               f"{e.key[:90]}")
+    return dict(preprocess_ms=1e3 * (t1 - t0), forward_ms=1e3 * (t2 - t1),
+                device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
 
 
-def compare_forwards(pred, cpu_pred):
+def compare_forwards(pred, cpu_pred, keys=("uvd", "xyz_int", "xyz_fk"),
+                     label: str = "") -> dict:
     """The same float32 forward three ways: with the kernel, with the plain
-    soft-argmax (use_kernel=False), and on the CPU (2 of the 8 rows)."""
+    soft-argmax (use_kernel=False), and on the CPU (2 of the 8 rows);
+    returns the largest rel_err of each comparison over `keys`."""
     frames, K, bboxes = synthetic_requests(8, SEED + 1)
     crops, crops_root, K_crops, k_values = pred.preprocess(frames, K, bboxes)
     args = (crops, crops_root, k_values, K_crops)
@@ -600,14 +623,18 @@ def compare_forwards(pred, cpu_pred):
     finally:
         pred.model.use_kernel = None
     out_cpu = cpu_pred.forward(*[t[:2].cpu() for t in args])
-    for key in ("uvd", "xyz_int", "xyz_fk"):
+    worst = dict(kernel_vs_plain=0.0, card_vs_cpu=0.0)
+    for key in keys:
         same = rel_err(out_kernel[key], out_plain[key])
         cross = rel_err(out_kernel[key][:2], out_cpu[key])
-        print(f"f32 forward {key}: kernel vs plain rel_err {same:.3e} "
-              f"(<= {SAME_DEVICE_REL}), card vs CPU rel_err {cross:.3e} "
-              f"(<= {CROSS_DEVICE_REL})", flush=True)
+        print(f"{label}f32 forward {key}: kernel vs plain rel_err "
+              f"{same:.3e} (<= {SAME_DEVICE_REL}), card vs CPU rel_err "
+              f"{cross:.3e} (<= {CROSS_DEVICE_REL})", flush=True)
         if not (same <= SAME_DEVICE_REL and cross <= CROSS_DEVICE_REL):
-            raise AssertionError(f"f32 forward {key} disagrees")
+            raise AssertionError(f"{label}f32 forward {key} disagrees")
+        worst = dict(kernel_vs_plain=max(worst["kernel_vs_plain"], same),
+                     card_vs_cpu=max(worst["card_vs_cpu"], cross))
+    return worst
 
 
 def training_state_dict(model, cfg, robot, batch, seed: int):
@@ -656,13 +683,15 @@ def make_train_step(cfg, sd, device, dtype=torch.float32, use_kernel=None):
                                         opt, sched)
 
 
-def train(cfg, sd, batch, device, card, warmup: int = 2, reps: int = 10):
-    """Train steps through `build_full_train_step` in float32 and bfloat16:
-    timed on the host clock, each ending in a synchronise; every loss must
-    be finite. Returns ({dtype name: ms per step}, steps run)."""
-    timings, steps = {}, 0
+def train(cfg, sd, batch, device, card, warmup: int = 2, reps: int = 10,
+          dtypes=(torch.float32, torch.bfloat16), label: str = ""):
+    """Train steps through `build_full_train_step` in each of `dtypes`:
+    timed on the host clock, each ending in a synchronise, then one traced
+    step; every loss must be finite. Returns ({dtype name: ms per step},
+    steps run, {dtype name: the traced step's device busy ms})."""
+    timings, steps, busy = {}, 0, {}
     b = batch["TCO"].shape[0]
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         name = str(dtype).split(".")[-1]
         model, step = make_train_step(cfg, sd, device, dtype)
         gen = torch.Generator(device=device).manual_seed(SEED)
@@ -677,19 +706,23 @@ def train(cfg, sd, batch, device, card, warmup: int = 2, reps: int = 10):
             steps += 1
         losses = torch.stack([torch.stack(list(lg.values())) for lg in logs])
         if not bool(torch.isfinite(losses).all()):
-            raise AssertionError(f"train {name}: non-finite losses {losses}")
+            raise AssertionError(f"{label}train {name}: non-finite losses "
+                                 f"{losses}")
         ms = 1e3 * statistics.median(times[warmup:])
         timings[name] = ms
-        print(f"train {name} b={b}: {ms:.3f} ms/step, "
+        print(f"{label}train {name} b={b}: {ms:.3f} ms/step, "
               f"{1e3 * b / ms:.1f} img/s (median of {reps} after "
               f"{warmup} warm-up); loss {float(losses[0, 0]):.4f} -> "
               f"{float(losses[-1, 0]):.4f}; peak memory "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB "
               f"({card})", flush=True)
-        train_breakdown(lambda: step(batch, gen), f"{name} b={b}", ms, card)
+        prof = train_breakdown(lambda: step(batch, gen),
+                               f"{label}{name} b={b}", ms, card)
+        busy[name] = sum(e.self_device_time_total
+                         for e in device_events(prof)) / 1e3
         steps += 1
         del model, step, logs, losses
-    return timings, steps
+    return timings, steps, busy
 
 
 def device_events(prof) -> list:
@@ -785,9 +818,10 @@ def compare_train_steps(cfg, sd, batch, device):
                              "the plain soft-argmax")
 
 
-def compare_train_card_cpu(cfg, device, seed: int):
+def compare_train_card_cpu(cfg, device, seed: int, label: str = "") -> dict:
     """One float32 train step at b=2 with dropout off on the card and on
-    the CPU, same weights and batch."""
+    the CPU, same weights and batch; returns the loss rel_err and the
+    gradient cosine."""
     from horopose_tpu_torch.data.synthetic import synthetic_dream_batch
     from horopose_tpu_torch.pipelines.common import (build_fullnet,
                                                      crop_sizes, make_robot)
@@ -805,11 +839,13 @@ def compare_train_card_cpu(cfg, device, seed: int):
     (card_logs, card_grads), (cpu_logs, cpu_grads) = out
     loss_rel = _loss_rel(card_logs, cpu_logs)
     cos = _cosine(card_grads, cpu_grads)
-    print(f"f32 train step b=2: card vs CPU: losses rel_err {loss_rel:.3e} "
-          f"(<= {CROSS_LOSS_REL}), gradient cosine {cos:.8f} "
+    print(f"{label}f32 train step b=2: card vs CPU: losses rel_err "
+          f"{loss_rel:.3e} (<= {CROSS_LOSS_REL}), gradient cosine {cos:.8f} "
           f"(> {CROSS_GRAD_COSINE})", flush=True)
     if not (loss_rel <= CROSS_LOSS_REL and cos > CROSS_GRAD_COSINE):
-        raise AssertionError("train step on the card disagrees with the CPU")
+        raise AssertionError(f"{label}train step on the card disagrees with "
+                             f"the CPU")
+    return dict(loss_rel_err=loss_rel, grad_cosine=cos)
 
 
 class TimedLoader:
@@ -1277,13 +1313,36 @@ def profile_device(fn) -> tuple:
 
 def collect_garbage(label: str, card: str):
     """A full garbage collection, timed, so that none lands inside a
-    timed region: the port's loaders are freed in one (their batch
-    sampler refers back to them), and on an H100 each of their worker
-    processes then took about 5 s to stop."""
+    timed region. Until the loader's reference cycle was broken the
+    port's loaders were freed in one, and each of their worker processes
+    then took torch's 5 s join timeout to stop; now `close_loaders` stops
+    them first and the collection finds little."""
     t0 = time.perf_counter()
     gc.collect()
     print(f"gc.collect {label}: {time.perf_counter() - t0:.2f} s ({card})",
           flush=True)
+
+
+# a loader's close() must not sit out torch's 5 s join timeout per worker
+CLOSE_S_MAX = 5.0
+
+
+def close_loaders(loaders: dict, label: str, card: str) -> dict:
+    """close() each loader of `loaders` (get_dataloaders' layout), timed:
+    each sends its workers their stop sentinel and joins them."""
+    flat = {"train": loaders["train"],
+            **{f"test/{k}": v for k, v in loaders["test"].items()}}
+    out = {}
+    for name, loader in flat.items():
+        t0 = time.perf_counter()
+        loader.close()
+        out[name] = time.perf_counter() - t0
+        print(f"{label}: {name} loader close() {out[name]:.3f} s "
+              f"({loader.num_workers} workers; {card})", flush=True)
+        if out[name] > CLOSE_S_MAX:
+            raise AssertionError(f"{label}: closing the {name} loader took "
+                                 f"{out[name]:.1f} s")
+    return out
 
 
 def _rows(batch: dict, n: int) -> dict:
@@ -1584,6 +1643,147 @@ def compare_sim2real_card_cpu(cfg, loaders, stage2_ckpt: str, device,
     return dict(loss_rel=loss_rel, grad_cosine=cos)
 
 
+# phase 11: two variant FullNets at the flagship's full width (the flags
+# no shipped config sets; models/full_net.py)
+VARIANTS = {
+    "V1": dict(add_fc=True, multi_kp=True, kps_need_depth=tuple(range(7)),
+               reg_joint_map=True, joint_conv_dim=(256, 256, 256),
+               rot_iterative_matmul=True),
+    "V2": dict(direct_reg_rot=True, rotation_dim=4),
+}
+VARIANT_SERVE_REPS = {1: 20, 128: 5}
+VARIANT_WARMUP, VARIANT_STEPS = 2, 5      # the b=64 step, float32
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """float32 convs and matmuls without TF32 inside, as phase 6 runs its
+    comparisons; the previous settings after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
+
+
+def phase11_variant(name, base_cfg, flags, batch, device, card, flagship,
+                    counts):
+    """Serve variant `name` (`base_cfg` with `flags`) through Predictor at
+    b=1 and 128, step it at the batch's size, and compare it with the
+    CPU; `counts` resets and reads the launch counts around each path."""
+    from horopose_tpu_torch.pipelines.common import (build_fullnet,
+                                                     make_robot,
+                                                     random_state_dict)
+    from horopose_tpu_torch.predictor import Predictor
+    reset, read = counts
+    cfg = dataclasses.replace(base_cfg, **flags)
+    print(f"{name}: panda FullNet {cfg.backbone_name} + "
+          f"{cfg.rootnet_backbone_name}, {cfg.image_size}^2 crops, depth_dim "
+          f"{cfg.depth_dim}, {flags}", flush=True)
+    sd = random_state_dict(build_fullnet(cfg), SEED)
+    pred = Predictor(cfg, sd, device=device)
+    reset()
+    timings, forwards = serve({f"{name} float32": pred},
+                              tuple(VARIANT_SERVE_REPS), VARIANT_SERVE_REPS,
+                              card)
+    launches = read(f"{name} serving")
+    if launches["soft_argmax_3d_fwd"] != forwards:
+        raise AssertionError(f"{name}: {forwards} forwards launched "
+                             f"{launches}")
+    big = max(VARIANT_SERVE_REPS)
+    out = {f"b{b}_ms": timings[(f"{name} float32", b)]
+           for b in VARIANT_SERVE_REPS}
+    out[f"b{big}_img_s"] = 1e3 * big / out[f"b{big}_ms"]
+    out["breakdown"] = {f"b{b}": breakdown(pred, b, card, f"{name} ")
+                        for b in VARIANT_SERVE_REPS}
+    print(f"{name} float32: b=1 latency {out['b1_ms']:.3f} ms against the "
+          f"flagship's {flagship[1]:.3f} ms; b={big} "
+          f"{out[f'b{big}_img_s']:.1f} img/s against "
+          f"{1e3 * big / flagship[big]:.1f} (phase 4; {card})", flush=True)
+
+    robot = make_robot(cfg, device=device)
+    train_sd = training_state_dict(build_fullnet(cfg), cfg, robot, batch,
+                                   SEED)
+    reset()
+    ms, steps, busy = train(cfg, train_sd, batch, device, card,
+                            VARIANT_WARMUP, VARIANT_STEPS, (torch.float32,),
+                            label=f"{name} ")
+    launches = read(f"{name} stage-2 training")
+    out["train"] = dict(step_ms=ms["float32"],
+                        device_busy_ms=busy["float32"],
+                        idle_share=1 - busy["float32"] / ms["float32"])
+    if not (launches["soft_argmax_3d_fwd"] == launches["soft_argmax_3d_bwd"]
+            == steps):
+        raise AssertionError(f"{name}: {steps} train steps launched "
+                             f"{launches}")
+
+    keys = ("pose", "rot", "trans", "depth", "uvd", "xyz_int", "xyz_fk") \
+        + (("depths",) if cfg.multi_kp else ())
+    with tf32_off():
+        out["forward_card_vs_cpu"] = compare_forwards(
+            pred, Predictor(cfg, sd, device="cpu"), keys, label=f"{name} ")
+        if cfg.reg_joint_map:    # V1: the step too, as phase 6 does
+            out["train_card_vs_cpu"] = compare_train_card_cpu(
+                cfg, device, SEED + 8, label=f"{name} ")
+    del pred
+    return out
+
+
+def phase11_harness(folder: str, weights: str, test_dir: str, tmp: str,
+                    device, card: str) -> dict:
+    """test_network on phase 9's test set with the plots and a profile,
+    and one synthetic frame rendered by the shaded renderer."""
+    from horopose_tpu_torch.pipelines import test as harness
+    from horopose_tpu_torch.tools.synth_dream import \
+        make_synthetic_dream_dataset
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    cfg = harness.make_test_cfg(folder, test_dir)
+    cfg.profile_dir = os.path.join(tmp, "profile")
+    result = os.path.join(folder, "result")
+    before = set(os.listdir(result))
+    t0 = time.perf_counter()
+    harness.test_network(cfg, ckpt_name=weights, batch_size=TEST_BATCH,
+                         visualization=True, device=device)
+    wall_s = time.perf_counter() - t0
+    written = {f: os.path.getsize(os.path.join(d, f))
+               for d in (result, cfg.profile_dir) for f in os.listdir(d)
+               if f not in before}
+    print(f"test_network with --visualization and profile_dir: "
+          f"{wall_s:.1f} s; wrote {written} (bytes); matplotlib "
+          f"{'found' if has_mpl else 'missing: the plots are no-ops, not a failure'}"
+          f" ({card})", flush=True)
+    plots = {"vis_best_cases.jpg", "vis_worst_cases.jpg",
+             f"add_distribution_curve_{os.path.basename(test_dir)}.jpg"}
+    if "trace.json" not in written or (has_mpl and not plots <= set(written)):
+        raise AssertionError(f"test_network wrote {sorted(written)}")
+
+    t0 = time.perf_counter()
+    d = make_synthetic_dream_dataset(os.path.join(tmp, "rendered"), "panda",
+                                     n_images=1, seed=SEED + 9,
+                                     render_images=True, view_mode="upright")
+    render_s = time.perf_counter() - t0
+    from PIL import Image
+    img = np.asarray(Image.open(os.path.join(d, "000000.jpg")), np.float32)
+    with open(os.path.join(d, "000000.json"), encoding="utf-8") as f:
+        box = json.load(f)["objects"][0]["bounding_box"]
+    roughness = float(np.abs(np.diff(img, axis=1)).mean())
+    print(f"render_images=True: one 480x640 frame of the URDF's primitive "
+          f"geometry in {render_s:.2f} s (host numpy); bbox {box}; mean "
+          f"|horizontal step| {roughness:.2f} levels (noise frames ~85; "
+          f"{card})", flush=True)
+    if img.shape != (480, 640, 3) or roughness > 20:
+        raise AssertionError("the rendered frame looks like noise")
+    return dict(test_network_s=wall_s, files=written, matplotlib=has_mpl,
+                render_s=render_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
@@ -1714,7 +1914,7 @@ def main() -> int:
           f"{cfg.p_dropout}; cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} for float32", flush=True)
     reset_counts()
-    train_ms, steps = train(cfg, train_sd, batch, device, card)
+    train_ms, steps, _ = train(cfg, train_sd, batch, device, card)
     counts = read_counts("stage-2 training")
     fwd_launches = counts["soft_argmax_3d_fwd"]
     bwd_launches = counts["soft_argmax_3d_bwd"]
@@ -1817,8 +2017,10 @@ def main() -> int:
             raise AssertionError(f"test_network: {n_test} batches and "
                                  f"2 x {FPS_ITERS + 1} timed forwards "
                                  f"launched {counts}")
-        stage2_ckpt = os.path.join(run["folder"], "ckpt",
+        stage2_folder = run["folder"]
+        stage2_ckpt = os.path.join(stage2_folder, "ckpt",
                                    "trained_weights.pk")
+        loader_close_s = {"phase 9": close_loaders(loaders, "phase 9", card)}
         del run, loaders
         collect_garbage("after phase 9", card)
 
@@ -1849,10 +2051,33 @@ def main() -> int:
                                           device, card)
         lap("10 card vs CPU")
         stage3.update(epoch_s=run3["epoch_s"], launches=counts, cross=cross)
+        loader_close_s["phase 10"] = close_loaders(loaders3, "phase 10", card)
         del run3, loaders3, teacher
         collect_garbage("after phase 10", card)
 
-    lap("10")
+        lap("10")
+
+        # ---- 11. the variant FullNets at full width, the harness's plots
+        # and profile, a rendered frame ----
+        flagship_ms = {b: timings[("float32", b)] for b in (1, 128)}
+        variants = {}
+        for name, flags in VARIANTS.items():
+            variants[name] = phase11_variant(
+                name, cfg, flags, batch, device, card, flagship_ms,
+                (reset_counts, read_counts))
+            lap(f"11 {name}")
+        reset_counts()
+        plots = phase11_harness(stage2_folder, stage2_ckpt, test_dir, tmp,
+                                device, card)
+        counts = read_counts("test harness with plots")
+        # the batches, the timed forwards, and the best and worst cases
+        want = n_test + 2 * (FPS_ITERS + 1) + 2
+        if counts["soft_argmax_3d_fwd"] != want:
+            raise AssertionError(f"test_network with the plots launched "
+                                 f"{counts}, want {want} forwards")
+        collect_garbage("after phase 11", card)
+
+    lap("11")
 
     # ---- 6. float32 comparisons, TF32 off everywhere ----
     torch.backends.cudnn.allow_tf32 = False
@@ -1918,7 +2143,9 @@ def main() -> int:
                                     "soft_argmax_3d_merge_kernel"],
                     stage2_from_files=dict(loader_alone=loader_alone,
                                            **files, test=harness),
-                    stage3=stage3),
+                    stage3=stage3, variants=variants,
+                    harness_with_plots=plots,
+                    loader_close_s=loader_close_s),
         kernel_line("soft_argmax_3d_bwd", sam_src,
                     "horopose_tpu/ops/integral_pallas.py:56", bwd_rows,
                     bwd_launches, [b_train, *cell], dx_tol),

@@ -14,8 +14,9 @@ updates the parameters. Batches keep the JAX package's layout: nested
 `batch_to_torch` makes them from the JAX `DataLoader`'s numpy batches.
 
 On a real set the rotation ground truth is PnP of the annotated 2D
-keypoints against FK (`pnp_fn`, `ops/pnp.py`). Not ported yet: the
-quaternion and multi-keypoint variants (ROADMAP queue 1 item 5).
+keypoints against FK (`pnp_fn`, `ops/pnp.py`). Every FullNet variant is
+served: quaternion rotations (`rotation_dim` 4) and a `multi_kp` head's
+per-keypoint depth loss.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from horopose_tpu_torch.core import losses as L
 from horopose_tpu_torch.kinematics.robot import Robot
 from horopose_tpu_torch.ops.rotations import (geodesic_distance,
                                               rot6d_to_rotmat, rot_to_rotmat,
-                                              rotmat_to_rot6d)
+                                              rotmat_to_quat, rotmat_to_rot6d)
 from horopose_tpu_torch.ops.transforms import k_value_from_bbox, project_points
 
 Batch = Mapping[str, object]
@@ -113,10 +114,6 @@ def prepare_gt(cfg, robot: Robot, batch: Batch,
     """Assemble the ground truth on the batch's device. pnp_fn, given on a
     real set, replaces TCO's rotation by PnP of the annotated 2D keypoints
     (`keypoints_2d_original`) against FK world points, at `K_original`."""
-    if int(cfg.rotation_dim) != 6:
-        raise NotImplementedError(
-            f"rotation_dim {cfg.rotation_dim} needs rotmat_to_quat, not "
-            f"ported yet (ROADMAP queue 1 item 5)")
     other, root = batch["other"], batch["root"]
     TCO = batch["TCO"].float()
     gt_pose = batch["jointpose"].float()
@@ -127,12 +124,15 @@ def prepare_gt(cfg, robot: Robot, batch: Batch,
     root_K = root["K"].float()
     K_original = batch["K_original"].float()
 
-    gt_rot = rotmat_to_rot6d(TCO[:, :3, :3])
+    # 6-D, else the quaternion (for every other rotation_dim, as the JAX
+    # package has it)
+    to_rot = rotmat_to_rot6d if int(cfg.rotation_dim) == 6 else rotmat_to_quat
+    gt_rot = to_rot(TCO[:, :3, :3])
     gt_trans = TCO[:, :3, 3]
     if pnp_fn is not None:
         R_pnp, _ = pnp_fn(batch["keypoints_2d_original"].float(),
                           robot.get_keypoints_only_fk(gt_pose), K_original)
-        gt_rot = rotmat_to_rot6d(R_pnp)
+        gt_rot = to_rot(R_pnp)
     ref = int(cfg.reference_keypoint_id)
     if ref == 0:
         gt_root_trans = gt_trans
@@ -188,9 +188,6 @@ def compute_full_losses(cfg, preds: Mapping[str, torch.Tensor],
     every loss becomes a masked mean, so a batch padded with duplicated
     rows logs exactly the loss of the unpadded batch. Training passes None.
     """
-    if "depths" in preds:       # the per-keypoint depths of a multi_kp head
-        raise NotImplementedError("multi_kp losses are not ported yet "
-                                  "(ROADMAP queue 1 item 5)")
     image_size = float(cfg.image_size)
     pred_pose = preds["pose"]
     gt_pose = gts["gt_pose"]
@@ -263,6 +260,12 @@ def compute_full_losses(cfg, preds: Mapping[str, torch.Tensor],
             cfg.kp2d_int_loss_weight * loss_error2d_int +
             cfg.kp3d_int_loss_weight * loss_error3d_int +
             cfg.align_3d_loss_weight * loss_error3d_align)
+    if cfg.multi_kp:
+        # the per-keypoint depths of a multi_kp head: in the sum, not logged
+        idx = torch.as_tensor(list(cfg.kps_need_depth),
+                              device=preds["depths"].device)
+        loss = loss + L.l1(preds["depths"], gts["gt_keypoints3d"][:, idx, 2],
+                           row_mask=row_mask)
     loss_dict = dict(
         loss_joint=loss_pose, loss_rot=loss_rot, loss_uv=loss_uv,
         loss_depth=loss_depth, loss_trans=loss_trans,

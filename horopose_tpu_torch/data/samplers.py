@@ -97,25 +97,39 @@ def _one_thread(worker_id: int) -> None:
 
 class _EpochBatches:
     """The batch sampler: each pass draws the sampler's indices for the
-    next epoch and cuts them into batches of (seed, epoch, index) keys."""
+    next epoch and cuts them into batches of (seed, epoch, index) keys.
 
-    def __init__(self, loader: "DataLoader"):
-        self.loader = loader
+    It holds what it reads and no reference to its `DataLoader`. With one,
+    the loader, the torch loader and its worker iterator would form a
+    cycle that only a garbage collection frees; there the index queues'
+    finalizers run before the iterator's, stop the feeder threads that
+    carry each worker its stop sentinel, and every worker waits out
+    torch's 5 s join timeout."""
+
+    def __init__(self, sampler, n_items: int, batch_size: int,
+                 drop_last: bool, worker_seed: int):
+        self.sampler = sampler
+        self.n_items = n_items
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.worker_seed = worker_seed
+        self.epoch = 0
 
     def __len__(self):
-        return len(self.loader)
+        n = len(self.sampler) if self.sampler is not None else self.n_items
+        return n // self.batch_size if self.drop_last else \
+            -(-n // self.batch_size)
 
     def __iter__(self):
-        ld = self.loader
-        epoch = ld.epoch
-        ld.epoch += 1
-        indices = list(iter(ld.sampler)) if ld.sampler is not None \
-            else list(range(len(ld.dataset)))
-        for i in range(0, len(indices), ld.batch_size):
-            chunk = indices[i:i + ld.batch_size]
-            if ld.drop_last and len(chunk) < ld.batch_size:
+        epoch = self.epoch
+        self.epoch += 1
+        indices = list(iter(self.sampler)) if self.sampler is not None \
+            else list(range(self.n_items))
+        for i in range(0, len(indices), self.batch_size):
+            chunk = indices[i:i + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
                 break
-            yield [(ld.worker_seed, epoch, int(j)) for j in chunk]
+            yield [(self.worker_seed, epoch, int(j)) for j in chunk]
 
 
 class DataLoader:
@@ -137,7 +151,8 @@ class DataLoader:
         self.num_workers = max(0, int(num_workers))
         self.drop_last = drop_last
         self.worker_seed = worker_seed
-        self.epoch = 0
+        self._batches = _EpochBatches(sampler, len(dataset), batch_size,
+                                      drop_last, worker_seed)
         workers = {}
         if self.num_workers:
             # "fork" (the default) starts workers without re-importing
@@ -151,19 +166,32 @@ class DataLoader:
                 worker_init_fn=_one_thread, persistent_workers=True,
                 prefetch_factor=max(1, -(-int(prefetch) // self.num_workers)))
         self._torch = torch.utils.data.DataLoader(
-            dataset, batch_sampler=_EpochBatches(self), collate_fn=collate,
+            dataset, batch_sampler=self._batches, collate_fn=collate,
             num_workers=self.num_workers, pin_memory=pin_memory, **workers)
 
+    @property
+    def epoch(self) -> int:
+        """The passes over the loader so far: the next pass's epoch."""
+        return self._batches.epoch
+
+    @epoch.setter
+    def epoch(self, value: int):
+        self._batches.epoch = int(value)
+
     def __len__(self):
-        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
-        return n // self.batch_size if self.drop_last else \
-            -(-n // self.batch_size)
+        return len(self._batches)
 
     def __iter__(self):
         return iter(self._torch)
 
     def close(self):
-        """Stop the worker processes (they also stop with the loader)."""
+        """Stop the worker processes now: each gets its stop sentinel and
+        is joined. Dropping the last reference to the loader does the same
+        through torch's iterator finalizer."""
+        # torch keeps the iterator of persistent workers only
+        iterator = getattr(self._torch, "_iterator", None)
+        if iterator is not None:
+            iterator._shutdown_workers()
         self._torch = None
 
 

@@ -1,12 +1,21 @@
 """Rotation representation conversions, batched over leading dims.
 
-Port of the serving and training subset of `horopose_tpu/ops/rotations.py`,
-and the axis-angle maps that PnP (`ops/pnp.py`) works in.
+Port of `horopose_tpu/ops/rotations.py`: the 6-D, quaternion and 9-D
+representations and their matrices, and the axis-angle maps that PnP
+(`ops/pnp.py`) works in.
 """
 
 from __future__ import annotations
 
 import torch
+
+_EPS = 1e-8
+
+
+def normalize_vector(v: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
+    """L2-normalize along the last axis with a magnitude floor."""
+    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
+                           min=eps)
 
 
 def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
@@ -22,6 +31,48 @@ def quat_to_rotmat(quat: torch.Tensor) -> torch.Tensor:
         torch.stack([2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2], -1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def rotmat_to_quat(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> quaternion (..., 4) (w, x, y, z).
+
+    Branchless Shepperd form: the four branch candidates (each 4 q_i q),
+    the one keyed by the largest squared component, normalized, with the
+    sign that makes w >= 0. Accurate near 180 degrees, where the trace
+    form (`rotmat_to_quat_trace`) divides by a vanishing w."""
+    m = matrix
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tw = 1.0 + m00 + m11 + m22          # = 4w^2
+    tx = 1.0 + m00 - m11 - m22          # = 4x^2
+    ty = 1.0 - m00 + m11 - m22          # = 4y^2
+    tz = 1.0 - m00 - m11 + m22          # = 4z^2
+    cand = torch.stack([
+        torch.stack([tw, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, tx, m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, ty, m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, tz], -1),
+    ], dim=-2)                                            # (..., 4, 4)
+    best = torch.stack([tw, tx, ty, tz], -1).argmax(-1)
+    q = torch.gather(cand, -2, best[..., None, None].expand(
+        *best.shape, 1, 4))[..., 0, :]
+    q = normalize_vector(q)
+    return torch.where(q[..., :1] < 0, -q, q)           # w >= 0
+
+
+def rotmat_to_quat_trace(matrix: torch.Tensor) -> torch.Tensor:
+    """The reference's trace-only conversion: wrong near 180 degrees, kept
+    for exact-parity comparisons."""
+    m = matrix
+    tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    w = torch.sqrt(torch.clamp(1.0 + tr, min=0.0)) / 2.0
+    w = torch.clamp(w, min=_EPS)
+    w4 = 4.0 * w
+    x = (m[..., 2, 1] - m[..., 1, 2]) / w4
+    y = (m[..., 0, 2] - m[..., 2, 0]) / w4
+    z = (m[..., 1, 0] - m[..., 0, 1]) / w4
+    return normalize_vector(torch.stack([w, x, y, z], dim=-1))
 
 
 def rot6d_to_rotmat(r6: torch.Tensor) -> torch.Tensor:
@@ -43,6 +94,18 @@ def rot6d_to_rotmat(r6: torch.Tensor) -> torch.Tensor:
 def rotmat_to_rot6d(matrix: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> 6D representation: first two rows."""
     return matrix[..., :2, :].reshape(*matrix.shape[:-2], 6)
+
+
+def rot9d_to_rotmat(r9: torch.Tensor) -> torch.Tensor:
+    """9-D -> SO(3) by symmetric orthogonalization (SVD), det-corrected.
+    `torch.linalg.svd` synchronises with the host on a CUDA device; no
+    default path calls it."""
+    m = r9.reshape(*r9.shape[:-1], 3, 3)
+    u, _, vt = torch.linalg.svd(m, full_matrices=False)
+    det = torch.linalg.det(u @ vt)
+    vt = torch.cat([vt[..., :2, :], vt[..., 2:, :] * det[..., None, None]],
+                   dim=-2)
+    return u @ vt
 
 
 def geodesic_distance(m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
@@ -86,16 +149,14 @@ def invert_T(T: torch.Tensor) -> torch.Tensor:
 
 
 def rot_to_rotmat(rot: torch.Tensor) -> torch.Tensor:
-    """Dispatch on trailing dim: 6 -> rot6d, 4 -> quat."""
+    """Dispatch on trailing dim: 6 -> rot6d, 4 -> quat, 9 -> rot9d."""
     d = rot.shape[-1]
     if d == 6:
         return rot6d_to_rotmat(rot)
     if d == 4:
         return quat_to_rotmat(rot)
     if d == 9:
-        raise NotImplementedError(
-            "rot9d is not ported yet (ROADMAP queue 1 item 5: "
-            "the non-flagship FullNet flags)")
+        return rot9d_to_rotmat(rot)
     raise ValueError(f"unsupported rotation dim {d}")
 
 
@@ -105,9 +166,7 @@ def rotmat_to_rot(matrix: torch.Tensor, dim: int) -> torch.Tensor:
     if dim == 9:
         return matrix.reshape(*matrix.shape[:-2], 9)
     if dim == 4:
-        raise NotImplementedError(
-            "quaternion-from-matrix is not ported yet (ROADMAP queue 1 "
-            "item 5: the non-flagship FullNet flags)")
+        return rotmat_to_quat(matrix)
     raise ValueError(f"unsupported rotation dim {dim}")
 
 

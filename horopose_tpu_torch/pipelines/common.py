@@ -53,6 +53,15 @@ class FullNetConfig:
     n_iter: int = 4
     p_dropout: float = 0.5
     rotation_dim: int = 6
+    # the variant heads (models/full_net.py); no shipped config sets them
+    direct_reg_rot: bool = False
+    rot_iterative_matmul: bool = False
+    reg_joint_map: bool = False
+    # empty: (256, 256, 256), as the JAX package builds it
+    joint_conv_dim: Sequence[int] = dataclasses.field(default_factory=list)
+    add_fc: bool = False
+    multi_kp: bool = False
+    kps_need_depth: Optional[Sequence[int]] = None
 
     # ---- stage-2 training ----
     batch_size: int = 64
@@ -101,8 +110,9 @@ class FullNetConfig:
     @classmethod
     def from_cfg(cls, cfg: Mapping) -> "FullNetConfig":
         """The fields' values from a `config.make_cfg` config, each coerced
-        to its field's type (`image_size : 256.0` -> 256); keys without a
-        field are not read."""
+        to its field's type (`image_size : 256.0` -> 256; a field without a
+        default value, such as a list, takes the value as read); keys
+        without a field are not read."""
         values = {}
         if cfg.get("other_image_size"):
             # the model's heatmap geometry follows the regression crop
@@ -111,7 +121,7 @@ class FullNetConfig:
             if field.name not in cfg or field.name in values:
                 continue
             v, default = cfg[field.name], field.default
-            if v is None or default is None:
+            if v is None or default is None or default is dataclasses.MISSING:
                 values[field.name] = v
             elif isinstance(default, tuple):
                 values[field.name] = tuple(float(e) for e in v)
@@ -143,7 +153,16 @@ def build_fullnet(cfg: FullNetConfig,
         bbox_3d_shape=tuple(cfg.bbox_3d_shape),
         reference_keypoint_id=cfg.reference_keypoint_id,
         fix_root=cfg.fix_root, n_iter=cfg.n_iter, p_dropout=cfg.p_dropout,
-        rotation_dim=cfg.rotation_dim,
+        rotation_dim=cfg.rotation_dim, direct_reg_rot=cfg.direct_reg_rot,
+        rot_iterative_matmul=cfg.rot_iterative_matmul,
+        reg_joint_map=cfg.reg_joint_map,
+        joint_conv_dim=tuple(int(c) for c in cfg.joint_conv_dim)
+        or (256, 256, 256),
+        joint_bounds=C.JOINT_BOUNDS[robot_type] if cfg.reg_joint_map
+        else None,
+        add_fc=cfg.add_fc, multi_kp=cfg.multi_kp,
+        kps_need_depth=tuple(int(k) for k in cfg.kps_need_depth)
+        if cfg.kps_need_depth else None,
         init_pose=tuple(C.initial_joint_vector("mean", robot_type).tolist()),
         # identity rotation in the configured representation
         init_rot=(1.0, 0.0, 0.0, 0.0) if cfg.rotation_dim == 4

@@ -18,13 +18,17 @@ metrics) is reported on its own line.
 
 The checkpoint is the port's or one the JAX package wrote (flax msgpack,
 `core/checkpoint.py`); a real set's rotation ground truth is PnP of its
-annotated 2D keypoints against FK (`make_pnp_fn`). Not ported yet: the
-plots (`draw_add_curve`, `visualize_extremes`, which need `core/vis.py`,
-ROADMAP queue 1 item 8).
+annotated 2D keypoints against FK (`make_pnp_fn`). The ADD curve
+(`add_distribution_curve_<set>.jpg`) is drawn always, and with
+`visualization` the best and worst cases (`vis_best_cases.jpg`,
+`vis_worst_cases.jpg`), both through `core/vis.py` (a no-op where
+matplotlib is missing). `cfg.profile_dir` wraps the eval loop in
+`core/profiling.trace`, which writes a Chrome trace there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -41,12 +45,14 @@ from horopose_tpu_torch.core.checkpoint import (is_jax_payload,
                                                 model_state_dict)
 from horopose_tpu_torch.core.engine import build_full_eval_step
 from horopose_tpu_torch.core.loggers import AverageMeter
+from horopose_tpu_torch.core.profiling import trace
+from horopose_tpu_torch.core.vis import draw_add_curve, vis_joints_3d
 from horopose_tpu_torch.core.metrics import (ADD_THRESHOLDS_MM,
                                              PCK_THRESHOLDS_PX,
                                              compute_metrics_batch,
                                              summary_add_pck)
 from horopose_tpu_torch.data.dream import DreamDataset
-from horopose_tpu_torch.data.samplers import DataLoader, pad_batch
+from horopose_tpu_torch.data.samplers import DataLoader, collate, pad_batch
 from horopose_tpu_torch.ops.rotations import euler_from_rotmat, rot_to_rotmat
 from horopose_tpu_torch.ops.transforms import project_points
 from horopose_tpu_torch.parallel.prefetch import to_device
@@ -63,6 +69,27 @@ def make_test_cfg(exp_path: str, dataset_path: str):
     cfg.test_ds_names = dataset_path
     cfg.exp_path = exp_path
     return cfg
+
+
+def visualize_extremes(eval_step, ds, dis3d, image_ids, result_path: str,
+                       device, n: int = 4, batch_size: int = 8):
+    """The `n` best and worst samples by ADD, replayed through the eval
+    step by their dataset indices and drawn by `core/vis.py::
+    vis_joints_3d` as vis_best_cases.jpg and vis_worst_cases.jpg."""
+    order = np.argsort(np.asarray(dis3d))
+    for tag, ids in (("best", order[:n]), ("worst", order[-n:])):
+        batch = collate([ds[int(image_ids[i])] for i in ids])
+        batch, n_valid = pad_batch(batch, batch_size)
+        preds, gts, _ = eval_step(to_device(batch, device))
+        kp3_pred = host_numpy(preds["xyz_fk"])[:n_valid]
+        K = batch["other"]["K"][:n_valid].float()
+        vis_joints_3d(
+            batch["other"]["images"].numpy()[:n_valid], kp3_pred,
+            host_numpy(gts["gt_keypoints3d"])[:n_valid],
+            project_points(K, torch.from_numpy(kp3_pred)).numpy(),
+            batch["other"]["keypoints_2d"].numpy()[:n_valid],
+            os.path.join(result_path, f"vis_{tag}_cases.jpg"),
+            n_samples=n_valid, errors=[float(dis3d[i]) for i in ids])
 
 
 def _median_seconds(fn: Callable[[], object], device: torch.device,
@@ -135,10 +162,6 @@ def test_network(cfg, ckpt_name: str = "curr_best_auc(add)_model.pk",
     """Evaluate the experiment's checkpoint on cfg.test_ds_names; writes
     result/summary.txt and add_distribution.json under cfg.exp_path and
     returns the ADD/PCK summary."""
-    if visualization:
-        raise NotImplementedError(
-            "--visualization needs core/vis.py, not ported yet (ROADMAP "
-            "queue 1 item 8)")
     set_seed()
     device = torch.device(device)
     fcfg = FullNetConfig.from_cfg(cfg)
@@ -176,57 +199,64 @@ def test_network(cfg, ckpt_name: str = "curr_best_auc(add)_model.pk",
     time_loop = AverageMeter()  # wall time incl. transfers + host metrics
     ref = int(cfg.reference_keypoint_id)
 
-    for bi, batch in enumerate(loader):
-        if max_batches and bi >= max_batches:
-            break
-        batch, n_valid = pad_batch(batch, batch_size)
-        t0 = time.perf_counter()
-        dev = to_device(batch, device, non_blocking=True)
-        preds, gts, _ = eval_step(dev)
-        # padded rows leave before the metric battery, so batch means (the
-        # per-joint meters) see only real samples
-        preds = {k: host_numpy(v)[:n_valid] for k, v in preds.items()}
-        gts = {k: host_numpy(v)[:n_valid] for k, v in gts.items()}
-        K_orig = batch["K_original"].numpy()[:n_valid]
-        kp2d_orig = batch["keypoints_2d_original"].numpy()[:n_valid]
-        m_fk = compute_metrics_batch(
-            robot=robot, gt_keypoints3d=gts["gt_keypoints3d"],
-            gt_keypoints2d=kp2d_orig, K_original=K_orig,
-            gt_joint=gts["gt_pose_before_mask"],
-            pred_keypoints3d=preds["xyz_fk"], pred_joint=preds["pose"],
-            reference_keypoint_id=ref)
-        # rotation error: the reference's euler L1
-        ep = euler_from_rotmat(rot_to_rotmat(torch.from_numpy(preds["rot"])))
-        eg = euler_from_rotmat(rot_to_rotmat(
-            torch.from_numpy(gts["gt_root_rot"])))
-        rotang = (ep - eg).abs().mean(dim=1).numpy()
+    profile = contextlib.nullcontext()
+    if cfg.get("profile_dir"):
+        profile = trace(str(cfg.profile_dir))
+        print(f"[test] writing a torch.profiler trace to {cfg.profile_dir}")
+    with profile:
+        for bi, batch in enumerate(loader):
+            if max_batches and bi >= max_batches:
+                break
+            batch, n_valid = pad_batch(batch, batch_size)
+            t0 = time.perf_counter()
+            dev = to_device(batch, device, non_blocking=True)
+            preds, gts, _ = eval_step(dev)
+            # padded rows leave before the metric battery, so batch means
+            # (the per-joint meters) see only real samples
+            preds = {k: host_numpy(v)[:n_valid] for k, v in preds.items()}
+            gts = {k: host_numpy(v)[:n_valid] for k, v in gts.items()}
+            K_orig = batch["K_original"].numpy()[:n_valid]
+            kp2d_orig = batch["keypoints_2d_original"].numpy()[:n_valid]
+            m_fk = compute_metrics_batch(
+                robot=robot, gt_keypoints3d=gts["gt_keypoints3d"],
+                gt_keypoints2d=kp2d_orig, K_original=K_orig,
+                gt_joint=gts["gt_pose_before_mask"],
+                pred_keypoints3d=preds["xyz_fk"], pred_joint=preds["pose"],
+                reference_keypoint_id=ref)
+            # rotation error: the reference's euler L1
+            ep = euler_from_rotmat(rot_to_rotmat(
+                torch.from_numpy(preds["rot"])))
+            eg = euler_from_rotmat(rot_to_rotmat(
+                torch.from_numpy(gts["gt_root_rot"])))
+            rotang = (ep - eg).abs().mean(dim=1).numpy()
 
-        # KeypointNet 2d distance: integral keypoints reprojected onto the
-        # reg crop against the crop's gt 2D keypoints, masked batch mean
-        kp2_int = project_points(batch["other"]["K"][:n_valid].float(),
-                                 torch.from_numpy(preds["xyz_int"])).numpy()
-        vm_crop = batch["other"]["valid_mask_crop"].numpy()[:n_valid]
-        gt_kp2 = batch["other"]["keypoints_2d"].numpy()[:n_valid]
-        d2 = np.linalg.norm(kp2_int - gt_kp2, axis=2) * vm_crop
-        alldis["mean_kp2d_distance"].append(
-            float(d2.sum() / max((vm_crop != 0).sum(), 1)))
-        alldis["id"].extend(batch["image_id"].numpy()[:n_valid].tolist())
-        alldis["dis3d"].extend(m_fk["image_dis3d_avg"])
-        alldis["dis2d"].extend(m_fk["image_dis2d_avg"])
-        alldis["jointerror"].extend(m_fk["image_l1jointerror_avg"])
-        alldis["deptherror"].extend(
-            np.asarray(m_fk["root_depth_error"]).tolist())
-        alldis["deptherror_relative"].extend(
-            np.asarray(m_fk["batch_error_relative"]).tolist())
-        alldis["mean_rot_angle"].extend(rotang.tolist())
-        alldis_rel["dis3d"].extend(
-            np.asarray(m_fk["error3d_relative"]).tolist())
-        alldis_rel["dis2d"].extend(m_fk["image_dis2d_avg"])
-        for i in range(robot.dof):
-            metric_l1joint[i].add(m_fk["batch_l1jointerror_avg"][i])
-        if bi > 0:  # the first batch also pays the warm-up
-            time_loop.add((time.perf_counter() - t0) / batch_size,
-                          n=batch_size)
+            # KeypointNet 2d distance: integral keypoints reprojected onto
+            # the reg crop against the crop's gt 2D keypoints, masked mean
+            kp2_int = project_points(
+                batch["other"]["K"][:n_valid].float(),
+                torch.from_numpy(preds["xyz_int"])).numpy()
+            vm_crop = batch["other"]["valid_mask_crop"].numpy()[:n_valid]
+            gt_kp2 = batch["other"]["keypoints_2d"].numpy()[:n_valid]
+            d2 = np.linalg.norm(kp2_int - gt_kp2, axis=2) * vm_crop
+            alldis["mean_kp2d_distance"].append(
+                float(d2.sum() / max((vm_crop != 0).sum(), 1)))
+            alldis["id"].extend(batch["image_id"].numpy()[:n_valid].tolist())
+            alldis["dis3d"].extend(m_fk["image_dis3d_avg"])
+            alldis["dis2d"].extend(m_fk["image_dis2d_avg"])
+            alldis["jointerror"].extend(m_fk["image_l1jointerror_avg"])
+            alldis["deptherror"].extend(
+                np.asarray(m_fk["root_depth_error"]).tolist())
+            alldis["deptherror_relative"].extend(
+                np.asarray(m_fk["batch_error_relative"]).tolist())
+            alldis["mean_rot_angle"].extend(rotang.tolist())
+            alldis_rel["dis3d"].extend(
+                np.asarray(m_fk["error3d_relative"]).tolist())
+            alldis_rel["dis2d"].extend(m_fk["image_dis2d_avg"])
+            for i in range(robot.dof):
+                metric_l1joint[i].add(m_fk["batch_l1jointerror_avg"][i])
+            if bi > 0:  # the first batch also pays the warm-up
+                time_loop.add((time.perf_counter() - t0) / batch_size,
+                              n=batch_size)
     loader.close()
 
     summary = summary_add_pck(alldis)
@@ -280,11 +310,14 @@ def test_network(cfg, ckpt_name: str = "curr_best_auc(add)_model.pk",
     ]
     with open(os.path.join(result_path, "summary.txt"), "a") as f:
         f.write("\n".join(lines) + "\n")
-    # the ADD curve's raw data; the plot itself is not ported
+    # the ADD curve's raw data, then its plot
     with open(os.path.join(result_path, "add_distribution.json"), "w") as f:
         json.dump(dict(dis3d=list(map(float, alldis["dis3d"])),
                        auc=summary["ADD/AUC"]), f)
-    print("[test] ADD curve plot skipped: not ported (needs core/vis.py, "
-          "ROADMAP queue 1 item 8)")
+    draw_add_curve(alldis, result_path, cfg.test_ds_names,
+                   auc=summary["ADD/AUC"])
+    if visualization:
+        visualize_extremes(eval_step, ds, alldis["dis3d"], alldis["id"],
+                           result_path, device)
     print("\n".join(lines))
     return summary

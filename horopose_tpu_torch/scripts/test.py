@@ -22,8 +22,7 @@ def main(argv=None):
                         default="curr_best_auc(add)_model.pk")
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument("--visualization", action="store_true",
-                        help="save best/worst-case skeleton figures (not "
-                             "ported yet)")
+                        help="save best/worst-case skeleton figures")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to evaluate on (default: cuda)")
     args = parser.parse_args(argv)

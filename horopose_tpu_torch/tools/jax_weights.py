@@ -116,9 +116,16 @@ def _fullnet_pairs(backbone_name: str, rootnet_backbone_name: str
         yield "deconv", f"deconv_layers.{ci}", (f"deconv{i}",)
         yield "bn", f"deconv_layers.{bi}", (f"deconv{i}_bn",)
     yield "conv", "final_layer", ("final_layer",)
+    # reg_joint_map: Sequential indices 0/3/6 are the convs, 1/4/7 the BNs
+    for i in range(3):
+        yield "conv", f"joint_conv_layers.{3 * i}", (f"joint_conv{i}",)
+        yield "bn", f"joint_conv_layers.{3 * i + 1}", (f"joint_conv{i}_bn",)
+    yield "conv", "joint_final_layer", ("joint_final_layer",)
     for name in ("fc_pose_1", "fc_pose_2", "decpose", "fc_rot_1", "fc_rot_2",
-                 "decrot"):
+                 "fc_rot_3", "fc_rot_4", "fc_rot_5", "fc_rot_6", "decrot",
+                 "depth_fc_d1", "depth_fc_d2", "depth_fc_u1", "depth_fc_u2"):
         yield "linear", name, (name,)
+    yield "bn", "depth_bn", ("depth_bn",)
     yield "dense_as_conv", "depth_layer", ("depth_layer",)
 
 

@@ -1,7 +1,11 @@
 """Write DREAM-format datasets (jpg + per-image json + camera json).
 
-Port of `horopose_tpu/tools/synth_dream.py` for its random-noise images
-(`render_images=False`). The on-disk schema is what `data/dream.py`
+Port of `horopose_tpu/tools/synth_dream.py`. Two image modes:
+`render_images=False` (the default) writes random-noise pixels, enough
+where only the annotations matter; `render_images=True` writes a
+flat-shaded z-buffer render of the robot at the annotated pose
+(`core/shaded_render.py`, the URDF's geometry) over a low-frequency
+background, so the pixels carry the pose. The on-disk schema is what `data/dream.py`
 reads: `objects[0]` carries `quaternion_xyzw` / `location` / `keypoints` /
 `bounding_box`, `sim_state.joints` the DoF values, and
 `_camera_settings.json` the intrinsics. A random base pose is encoded as
@@ -10,9 +14,6 @@ keypoints come from the port's FK of the built-in robot description, so
 FK(gt_joints) placed at TCO reproduces the annotations. The draws from the
 seed are the JAX writer's, so both write the same jpgs and the same
 annotations up to float32 FK rounding.
-
-The rendered images (`render_images=True`) need the shaded renderer
-(`core/shaded_render.py`), which is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,6 +62,19 @@ def _rotmat_to_quat_xyzw(M):
 _R_UPRIGHT = np.array([[1.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]])
 
 
+def _background(rng, h, w):
+    """Low-frequency gradient + mild noise: non-constant, but not a
+    distractor for the rendered robot."""
+    gx = np.linspace(0, 1, w, dtype=np.float32)[None, :]
+    gy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+    base = rng.uniform(40, 110)
+    tilt = rng.uniform(-60, 60, size=2)
+    img = base + tilt[0] * gx + tilt[1] * gy
+    img = img[..., None] + rng.uniform(-15, 15, size=3)[None, None]
+    img = img + rng.randn(h, w, 1).astype(np.float32) * 4.0
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def make_synthetic_dream_dataset(base_dir, robot_type="panda", n_images=6,
                                  seed=0, image_hw=(480, 640),
                                  synthetic=True, split="test_dr",
@@ -75,11 +89,6 @@ def make_synthetic_dream_dataset(base_dir, robot_type="panda", n_images=6,
     view_mode "random": a uniformly random base orientation; "upright":
     the robot upright, a random azimuth, the camera tilt jittered by at
     most view_jitter_deg."""
-    if render_images:
-        raise NotImplementedError(
-            "render_images=True needs the shaded renderer "
-            "(core/shaded_render.py), not ported yet (ROADMAP queue 1 "
-            "item 8)")
     from horopose_tpu_torch.data.dream import (R_NORMAL_UE,
                                                _quat_xyzw_to_rotmat)
     from horopose_tpu_torch.kinematics.robot import Robot
@@ -107,6 +116,13 @@ def make_synthetic_dream_dataset(base_dir, robot_type="panda", n_images=6,
     bounds = C.JOINT_BOUNDS[robot_type]
     kp_names = C.KEYPOINT_NAMES[robot_type]
     joint_names = C.JOINT_NAMES[robot_type]
+
+    robot_mesh = None
+    if render_images:
+        from horopose_tpu_torch.core.shaded_render import render_robot_shaded
+        from horopose_tpu_torch.kinematics.meshes import build_robot_mesh
+        robot_mesh = build_robot_mesh(
+            robot.model, {n: i for i, n in enumerate(robot.plan.link_names)})
 
     for i in range(n_images):
         # base pose: the decode path defines the rotation; keep the robot
@@ -149,7 +165,18 @@ def make_synthetic_dream_dataset(base_dir, robot_type="panda", n_images=6,
         margin = 10
         bb_min = kp2d.min(axis=0) - margin
         bb_max = kp2d.max(axis=0) + margin
-        img = rng.randint(0, 255, (h, w, 3), dtype=np.uint8)
+        if render_images:
+            rendered, img = render_robot_shaded(
+                robot, robot_mesh, cfg, R[:2, :].reshape(6), trans, K, (h, w),
+                original_image=_background(rng, h, w), blend=1.0)
+            ys, xs = np.nonzero(rendered.any(axis=-1))
+            if len(ys):  # widen the bbox to the rendered silhouette
+                bb_min = np.minimum(bb_min, [xs.min() - margin,
+                                             ys.min() - margin])
+                bb_max = np.maximum(bb_max, [xs.max() + margin,
+                                             ys.max() + margin])
+        else:
+            img = rng.randint(0, 255, (h, w, 3), dtype=np.uint8)
 
         ann = {
             "objects": [{

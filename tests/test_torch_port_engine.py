@@ -226,12 +226,16 @@ def test_prepare_gt_matches_jax(bbox, joint_mask, ref_kp, np_batch, robots):
 
 
 def test_prepare_gt_rejects_unported_options(np_batch, robots):
-    """rotation_dim 4 is not ported; the PnP ground truth of the real sets
-    is (tests/test_torch_port_pnp.py)."""
-    batch = TE.batch_to_torch(np_batch, "cpu")
-    _, cfg4 = _cfgs(rotation_dim=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TE.prepare_gt(cfg4, robots[1], batch)
+    """No option is left unported (the name is kept from when rotation_dim
+    4 raised): the quaternion ground truth, the root's rotation included,
+    matches JAX (more cases in tests/test_torch_port_variants.py)."""
+    jcfg4, cfg4 = _cfgs(rotation_dim=4)
+    ref = JE.prepare_gt(jcfg4, robots[0], jax.tree.map(jnp.asarray, np_batch))
+    out = TE.prepare_gt(cfg4, robots[1], TE.batch_to_torch(np_batch, "cpu"))
+    for k in ("gt_rot", "gt_root_rot"):
+        assert out[k].shape == (B, 4)
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]),
+                                   rtol=F32_RTOL, atol=1e-6, err_msg=k)
 
 
 # ---- compute_full_losses ----
@@ -279,11 +283,23 @@ def test_compute_full_losses_matches_jax(variant, row_mask, np_batch, robots,
     np.testing.assert_allclose(float(out), float(ref), rtol=F32_RTOL)
 
 
-def test_compute_full_losses_rejects_multi_kp():
-    """A multi_kp head's per-keypoint depths have no loss in the port yet."""
-    _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TE.compute_full_losses(cfg, {"depths": torch.zeros(B, 7)}, {}, None)
+def test_compute_full_losses_rejects_multi_kp(np_batch, robots, rng):
+    """A multi_kp head's per-keypoint depths have their loss now (the name
+    is kept from when they raised): the L1 on the chosen keypoints'
+    depths joins the sum as in JAX (more cases in
+    tests/test_torch_port_variants.py)."""
+    jcfg, cfg = _cfgs(multi_kp=True, kps_need_depth=[1, 3, 5])
+    preds = {k: v.astype(np.float32) for k, v in _preds(rng).items()}
+    preds["depths"] = rng.uniform(0.5, 2, (B, 3)).astype(np.float32)
+    jb = jax.tree.map(jnp.asarray, np_batch)
+    ref, _ = JE.compute_full_losses(
+        jcfg, {k: jnp.asarray(v) for k, v in preds.items()},
+        JE.prepare_gt(jcfg, robots[0], jb), jb["other"]["K"])
+    tb = TE.batch_to_torch(np_batch, "cpu")
+    out, _ = TE.compute_full_losses(
+        cfg, {k: _t(v) for k, v in preds.items()},
+        TE.prepare_gt(cfg, robots[1], tb), tb["other"]["K"])
+    np.testing.assert_allclose(float(out), float(ref), rtol=F32_RTOL)
 
 
 # ---- the whole train step and the eval step ----

@@ -157,11 +157,34 @@ def test_from_jax_rejects_leaves_without_a_torch_key():
                                     "resnet18")
 
 
+FLAG_NEEDS = {"multi_kp": dict(kps_need_depth=(0, 3, 6)),
+              "reg_joint_map": dict(joint_bounds=JC.JOINT_BOUNDS["panda"])}
+
+
 @pytest.mark.parametrize("flag", ["multi_kp", "add_fc", "reg_joint_map",
                                   "direct_reg_rot", "rot_iterative_matmul"])
 def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FullNet(init_pose=INIT_POSE, **{flag: True})
+    """Every flag is ported now (the name is kept from when each raised):
+    each builds with what it needs, runs a forward, and raises a
+    ValueError where the JAX model would fail. The variants' parity with
+    JAX is in tests/test_torch_port_variants.py."""
+    kw = dict(backbone_name="resnet18", rootnet_backbone_name="resnet18",
+              image_size=64, depth_dim=4, init_pose=INIT_POSE)
+    model = FullNet(**kw, **{flag: True}, **FLAG_NEEDS.get(flag, {}))
+    model.load_state_dict(random_state_dict(model, 0))
+    with torch.no_grad():
+        out = model.eval()(torch.rand(1, 3, 64, 64), torch.rand(1, 3, 64, 64),
+                           torch.full((1,), 2000.0), torch.eye(3)[None])
+    assert all(torch.isfinite(v).all() for v in out.values())
+    assert ("depths" in out) == (flag == "multi_kp")
+    bad = {"multi_kp": dict(kps_need_depth=(0, 1)),      # no root keypoint
+           "reg_joint_map": {},                          # no joint bounds
+           "rot_iterative_matmul": dict(rotation_dim=4,
+                                        init_rot=(1, 0, 0, 0)),
+           "direct_reg_rot": dict(rotation_dim=9),       # 6 init_rot values
+           "add_fc": dict(dtype=torch.float16)}[flag]
+    with pytest.raises(ValueError):
+        FullNet(**kw, **{flag: True, **bad})
 
 
 def test_bf16_forward_keeps_heads_and_decoding_f32(rng):

@@ -128,12 +128,19 @@ def test_geometry_matches_jax(name, rng):
 
 
 def test_unported_rotation_dims_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.rot_to_rotmat(torch.zeros(2, 9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.rotmat_to_rot(torch.eye(3)[None], 4)
+    """The 9-D and quaternion maps are ported (the name is kept from when
+    they raised; tests/test_torch_port_variants.py holds them against
+    JAX); an unknown dimension still raises."""
+    r9 = torch.eye(3).reshape(1, 9) + 0.1
+    R = TR.rot_to_rotmat(r9)
+    torch.testing.assert_close(R @ R.transpose(-1, -2),
+                               torch.eye(3)[None], atol=1e-5, rtol=0)
+    torch.testing.assert_close(TR.rotmat_to_rot(torch.eye(3)[None], 4),
+                               torch.tensor([[1.0, 0, 0, 0]]))
     with pytest.raises(ValueError):
         TR.rot_to_rotmat(torch.zeros(2, 5))
+    with pytest.raises(ValueError):
+        TR.rotmat_to_rot(torch.eye(3)[None], 5)
 
 
 # the shapes of tests/test_integral_pallas.py, plus D != H != W

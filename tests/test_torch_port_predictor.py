@@ -1,6 +1,7 @@
 """Port serving path against the JAX package: the crop, the preprocessing,
 the `Predictor` end to end, and the port's import isolation."""
 
+import json
 import os
 import re
 import subprocess
@@ -9,6 +10,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from horopose_tpu import native
 from horopose_tpu.config import make_default_cfg
@@ -211,7 +213,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'horopose_tpu_torch.models.deeplab', "
         "'horopose_tpu_torch.ops.pnp', "
         "'horopose_tpu_torch.ops.rasterizer', "
-        "'horopose_tpu_torch.pipelines.train_sim2real'} <= set(names), "
+        "'horopose_tpu_torch.pipelines.train_sim2real', "
+        "'horopose_tpu_torch.core.profiling', "
+        "'horopose_tpu_torch.core.shaded_render'} <= set(names), "
         "names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
@@ -227,13 +231,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_synthetic_writer_has_no_rendered_images_yet(tmp_path):
-    """render_images=True needs the meshes and the shaded renderer, which
-    are not ported: it raises, naming them, and writes nothing."""
+    """render_images=True is ported (the name is kept from when it
+    raised): each frame is the shaded render of the robot over a smooth
+    background, not noise, and the bbox holds the rendered silhouette.
+    tests/test_torch_port_vis.py holds the frames against the JAX
+    writer's."""
     from horopose_tpu_torch.tools.synth_dream import \
         make_synthetic_dream_dataset
-    with pytest.raises(NotImplementedError, match="shaded_render"):
-        make_synthetic_dream_dataset(tmp_path, render_images=True)
-    assert not os.listdir(tmp_path)
+    d = make_synthetic_dream_dataset(tmp_path, n_images=1, image_hw=(96, 128),
+                                     render_images=True, view_mode="upright")
+    img = np.asarray(Image.open(d / "000000.jpg"), np.float32)
+    noise = np.abs(np.diff(img, axis=1)).mean()
+    assert img.shape == (96, 128, 3) and noise < 20, noise
+    with open(d / "000000.json") as f:
+        box = json.load(f)["objects"][0]["bounding_box"]
+    assert box["max"][0] - box["min"][0] > 10
 
 
 def test_test_network_rejects_a_jax_checkpoint(tmp_path):
