@@ -100,13 +100,33 @@ Phases, each of which raises on failure:
      is said and is no failure) and a torch.profiler trace
      (`profile_dir`), and one frame of the synthetic writer's shaded
      render (`render_images=True`);
+  12. the weight files and the serving artifact, at the flagship's full
+     width: the built-in panda URDF written as the user's under a
+     temporary data directory with one link's visual a `<mesh>` OBJ,
+     which `make_robot` must read (its path, `build_robot_mesh`'s faces,
+     FK on the card against the built-in robot); phase 4's seeded weights
+     saved as a reference `.pk` ({model_state_dict, epoch, auc_add}),
+     converted by `python -m horopose_tpu_torch.tools.convert fullnet` in
+     a subprocess, both files read by `Predictor.from_experiment` (weights
+     bitwise equal to the seeded ones, b=128 outputs against the seeded
+     Predictor's); a seeded CtRNet teacher under the
+     reference's names converted by `tools.convert ctrnet_seg` and read by
+     the stage-3 teacher loader (weights and b=32 masks equal); the
+     serving forward exported at b=128 in float32 (`tools/export.py`),
+     saved, loaded and run: its outputs against the eager forward, the
+     soft-argmax launches inside the program (one a call), its export
+     seconds, size, and median time beside the eager forward's, one call
+     of each traced on the device; the host time of a soft-argmax call
+     through the wrapper and through the registered operator. Its
+     comparisons run with TF32 off and cuDNN's deterministic algorithms
+     (the transposed convs' sums otherwise change order between calls);
   7. one JSON line describing every kernel, and as the last line
      {"ok": true, "device": {...}}.
 
-They run in the order 1-5, 8, 9, 10, 11, 6, 7: phases 8-11 keep cuDNN's
-default TF32 for float32, as phases 4 and 5 do (phase 11's comparisons
-turn it off for themselves), and phase 8's b=2 comparison runs with
-phase 6's. Each phase prints its wall time. Phases 9 and 10 close their
+They run in the order 1-5, 8, 9, 10, 11, 12, 6, 7: phases 8-12 keep
+cuDNN's default TF32 for float32, as phases 4 and 5 do (phases 11 and 12
+turn it off for their comparisons), and phase 8's b=2 comparison runs
+with phase 6's. Each phase prints its wall time. Phases 9 and 10 close their
 loaders and print each close()'s time. Each path's kernel launch counts
 are set to 0 just before it and read just after it; launches made to
 compare a kernel with its plain version are not counted.
@@ -1784,6 +1804,341 @@ def phase11_harness(folder: str, weights: str, test_dir: str, tmp: str,
                 render_s=render_s)
 
 
+# phase 12: the weight files and the serving artifact, at the flagship's
+# full width
+URDF_FK_ATOL = 1e-6     # a user URDF with the built-in's joints, f32 FK
+CONVERTED_REL = 1e-6    # the same weights read from another file
+EXPORT_REL = 1e-5       # exported program vs eager forward, TF32 off
+EXPORT_BATCH, EXPORT_REPS = 128, 5
+TEACHER_BATCH = 32
+USER_MESH_LINK = "panda_link3"
+CKPT_NAME = "curr_best_auc(add)_model.pk"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def write_user_urdf(data_dir: str) -> str:
+    """The built-in panda description written as a user's, at
+    `<data_dir>/deps/panda-description/panda.urdf` (the path
+    `config.URDF_PATHS` names for HOROPOSE_DATA_DIR=<data_dir>), with the
+    visual of USER_MESH_LINK a `<mesh>` of an OBJ written beside it (a box
+    of 8 vertices and 12 triangles). Returns the URDF's path."""
+    from horopose_tpu_torch.kinematics.robot import BUILTIN_URDF
+    folder = os.path.join(data_dir, "deps", "panda-description")
+    os.makedirs(os.path.join(folder, "meshes"), exist_ok=True)
+    with open(BUILTIN_URDF["panda"]) as f:
+        text = f.read()
+    start = text.index(f'<link name="{USER_MESH_LINK}">')
+    g0 = text.index("<geometry>", start)
+    g1 = text.index("</geometry>", g0) + len("</geometry>")
+    text = (text[:g0] + '<geometry><mesh filename="meshes/link.obj"/>'
+            '</geometry>' + text[g1:])
+    corners = [(x, y, z) for x in (-0.05, 0.05) for y in (-0.05, 0.05)
+               for z in (-0.1, 0.05)]
+    quads = ((1, 2, 4, 3), (5, 7, 8, 6), (1, 5, 6, 2), (3, 4, 8, 7),
+             (1, 3, 7, 5), (2, 6, 8, 4))
+    lines = [f"v {x} {y} {z}" for x, y, z in corners]
+    for a, b, c, d in quads:
+        lines += [f"f {a} {b} {c}", f"f {a} {c} {d}"]
+    with open(os.path.join(folder, "meshes", "link.obj"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    path = os.path.join(folder, "panda.urdf")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """`tf32_off`, and cuDNN's deterministic algorithms: its transposed
+    convs may otherwise sum in another order from call to call, so two
+    runs of the same weights agree only to rounding, which the near-zero
+    uvd of random weights magnifies in a relative error (phase 12 prints
+    it)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tf32_off():
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def phase12_urdf(cfg, device, card: str, tmp: str) -> dict:
+    """`make_robot` with the user's URDF under the data directory: the
+    path it read, the mesh `build_robot_mesh` builds from it, and its FK
+    on the card against the built-in robot's."""
+    from horopose_tpu_torch import config
+    from horopose_tpu_torch import constants as C
+    from horopose_tpu_torch.kinematics.meshes import build_robot_mesh
+    from horopose_tpu_torch.kinematics.robot import Robot
+    from horopose_tpu_torch.pipelines.common import make_robot
+    path = write_user_urdf(tmp)
+    saved = dict(config.URDF_PATHS)
+    config.URDF_PATHS["panda"] = path
+    try:
+        robot = make_robot(cfg, device=device)
+    finally:
+        config.URDF_PATHS.update(saved)
+    builtin = Robot(cfg.urdf_robot_name, device=device)
+    meshes = [build_robot_mesh(r.model, {n: i for i, n in
+                                         enumerate(r.plan.link_names)})
+              for r in (robot, builtin)]
+    rng = np.random.RandomState(SEED + 12)
+    lo, hi = np.asarray(C.JOINT_BOUNDS["panda"], np.float32).T
+    n = 256
+    f32 = dict(dtype=torch.float32, device=device)
+    q = torch.tensor(rng.uniform(lo, hi, (n, len(lo))), **f32)
+    rot = torch.tensor(rng.randn(n, 6), **f32)
+    trans = torch.tensor(rng.randn(n, 3) * 0.2 + [0.0, 0.0, 1.5], **f32)
+    kp = [r.get_keypoints_root(q, rot, trans, root=cfg.reference_keypoint_id)
+          for r in (robot, builtin)]
+    poses = [r.plan.link_poses(q) for r in (robot, builtin)]
+    fk_err = max(float((kp[0] - kp[1]).abs().max()),
+                 float((poses[0] - poses[1]).abs().max()))
+    print(f"phase 12 URDF: make_robot read {robot.urdf_path}; "
+          f"build_robot_mesh: {meshes[0].num_faces} faces "
+          f"({meshes[0].n_file_geoms} from mesh files, "
+          f"{meshes[0].n_primitive_geoms} primitives), the built-in "
+          f"{meshes[1].num_faces} ({meshes[1].n_file_geoms} from files); "
+          f"FK on the card against the built-in robot over {n} poses: max "
+          f"|d| {fk_err:.3e} (<= {URDF_FK_ATOL}) ({card})", flush=True)
+    if robot.urdf_path != path or meshes[0].n_file_geoms != 1 \
+            or meshes[0].missing_meshes or meshes[1].n_file_geoms != 0:
+        raise AssertionError("make_robot did not build from the user URDF")
+    if not fk_err <= URDF_FK_ATOL:
+        raise AssertionError(f"user-URDF FK differs by {fk_err:.3e}")
+    return dict(urdf_path=robot.urdf_path, faces=meshes[0].num_faces,
+                builtin_faces=meshes[1].num_faces, fk_max_abs=fk_err)
+
+
+def run_convert(args) -> float:
+    """`python -m horopose_tpu_torch.tools.convert <args>` in a
+    subprocess; returns its wall seconds."""
+    import subprocess
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "horopose_tpu_torch.tools.convert", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = done.stdout.strip().splitlines()
+    print(f"  convert {args[0]}: rc {done.returncode} in {seconds:.1f} s: "
+          f"{lines[0] if lines else ''} ... {lines[-1] if lines else ''}",
+          flush=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"convert {args[0]} failed:\n{done.stderr[-3000:]}")
+    return seconds
+
+
+def _same_tensors(got: dict, want: dict, what: str) -> int:
+    """Raise unless `got` holds exactly `want`'s keys with bitwise equal
+    tensors; returns the number of tensors."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys differ")
+    for k, v in want.items():
+        if not torch.equal(got[k].cpu(), v.cpu()):
+            raise AssertionError(f"{what}: {k} differs")
+    return len(want)
+
+
+def phase12_convert(cfg, sd, seeded_pred, device, card: str, tmp: str
+                    ) -> dict:
+    """The flagship's seeded weights as a reference `.pk`, read raw and
+    after `tools.convert fullnet` by `Predictor.from_experiment` (bitwise
+    equal weights, b=128 outputs against the seeded Predictor's), and a
+    reference-named CtRNet teacher converted by `tools.convert ctrnet_seg`
+    and read by the stage-3 teacher loader (bitwise equal weights and
+    masks). The comparisons run with TF32 off and cuDNN deterministic."""
+    import shutil
+    from horopose_tpu_torch.config import make_cfg
+    from horopose_tpu_torch.models.deeplab import SegTeacher
+    from horopose_tpu_torch.pipelines.train_sim2real import load_seg_teacher
+    from horopose_tpu_torch.predictor import Predictor
+    from horopose_tpu_torch.tools.torch_weights import ctrnet_seg_prefixes
+    exps = {name: os.path.join(tmp, name) for name in ("reference .pk",
+                                                        "converted")}
+    for exp in exps.values():
+        os.makedirs(os.path.join(exp, "ckpt"))
+        shutil.copy(os.path.join(ROOT, STAGE2_CONFIG),
+                    os.path.join(exp, "config.yaml"))
+    src = os.path.join(exps["reference .pk"], "ckpt", CKPT_NAME)
+    torch.save({"model_state_dict": sd, "epoch": 0, "auc_add": 0.0}, src)
+    fullnet_s = run_convert([
+        "fullnet", src, os.path.join(exps["converted"], "ckpt", CKPT_NAME),
+        "--backbone", cfg.backbone_name, "--rootnet_backbone",
+        cfg.rootnet_backbone_name, "--image_size", str(cfg.image_size)])
+    frames, K, bboxes = synthetic_requests(EXPORT_BATCH, SEED + 12)
+    with deterministic_convs():
+        want = seeded_pred(frames, K, bboxes)
+        errs = {}
+        for name, exp in exps.items():
+            pred = Predictor.from_experiment(exp, device=device)
+            n = _same_tensors(pred.model.state_dict(), sd, name)
+            out = pred(frames, K, bboxes)
+            errs[name] = max(rel_err(torch.from_numpy(out[k]),
+                                     torch.from_numpy(want[k])) for k in want)
+            print(f"phase 12 convert: {name} through "
+                  f"Predictor.from_experiment: {n} tensors bitwise equal to "
+                  f"the seeded model's; b={EXPORT_BATCH} outputs rel_err "
+                  f"{errs[name]:.3e} (<= {CONVERTED_REL}) ({card})",
+                  flush=True)
+            if not errs[name] <= CONVERTED_REL:
+                raise AssertionError(f"{name}: outputs differ")
+            del pred
+
+    # the teacher: the seeded one's weights under the reference's names
+    seeded = SegTeacher.init_random(SEED + 12)
+    table = [(port, ref) for ref, port in ctrnet_seg_prefixes()]
+    ref_sd = {}
+    for key, value in seeded.model.state_dict().items():
+        port, ref = next(p for p in table if key.startswith(p[0]))
+        ref_sd[ref + key[len(port):]] = value
+    src = os.path.join(tmp, "azure.pth")
+    torch.save(ref_sd, src)
+    folder = os.path.join(tmp, "models", "panda_segmentation")
+    os.makedirs(folder)
+    teacher_s = run_convert(["ctrnet_seg", src,
+                             os.path.join(folder, "azure.pt")])
+    with contextlib.chdir(tmp):
+        teacher = load_seg_teacher(make_cfg(os.path.join(ROOT, STAGE3_CONFIG)),
+                                   device=device)
+    n = _same_tensors(teacher.model.state_dict(), seeded.model.state_dict(),
+                      "teacher")
+    seeded.to(device)
+    images = torch.from_numpy(synthetic_requests(TEACHER_BATCH,
+                                                 SEED + 13)[0]).to(device)
+    with deterministic_convs(), torch.no_grad():
+        masks, masks_seeded = teacher(images), seeded(images)
+    mask_diff = float((masks - masks_seeded).abs().max())
+    print(f"phase 12 convert: CtRNet teacher under the reference's names "
+          f"({len(ref_sd)} tensors) -> tools.convert ctrnet_seg -> "
+          f"load_seg_teacher: {n} tensors bitwise equal; b={TEACHER_BATCH} "
+          f"masks {tuple(masks.shape)} max |d| {mask_diff:.3e} (== 0) "
+          f"({card})", flush=True)
+    if not torch.equal(masks, masks_seeded):
+        raise AssertionError("the converted teacher's masks differ")
+    return dict(fullnet_convert_s=fullnet_s, teacher_convert_s=teacher_s,
+                outputs_rel_err=errs, teacher_mask_max_abs=mask_diff)
+
+
+def phase12_export(cfg, sd, seeded_pred, device, card: str, tmp: str,
+                   counts, phase4_ms: float) -> dict:
+    """The flagship's serving forward exported at b=128 in float32, saved,
+    loaded and run: its outputs against the eager `Predictor.forward` on
+    the same crops (TF32 off and cuDNN deterministic for both), the
+    soft-argmax launches inside the program, and its median time against
+    the eager forward's."""
+    from horopose_tpu_torch.tools.export import (OUTPUTS, export_serving,
+                                                 load_serving)
+    reset_counts, read_counts = counts
+    path = os.path.join(tmp, "flagship.pt2")
+    t0 = time.perf_counter()
+    export_serving(cfg, sd, path, batch_size=EXPORT_BATCH, device=device)
+    export_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    weights_mb = sum(v.numel() * v.element_size() for v in sd.values()) / 1e6
+    t0 = time.perf_counter()
+    fn, meta = load_serving(path, device=device)
+    load_s = time.perf_counter() - t0
+    frames, K, bboxes = synthetic_requests(EXPORT_BATCH, SEED + 14)
+    crops, crops_root, K_crops, k_values = seeded_pred.preprocess(frames, K,
+                                                                  bboxes)
+    args = (crops, crops_root, k_values, K_crops)
+    with deterministic_convs():
+        out, ref = fn(*args), seeded_pred.forward(*args)
+        errs = {k: rel_err(out[k], ref[k]) for k in OUTPUTS}
+        uvd_abs = float((out["uvd"] - ref["uvd"]).abs().max())
+        uvd_max = float(ref["uvd"].abs().max())
+    with tf32_off():         # cuDNN free to pick its summation order
+        loose = rel_err(fn(*args)["uvd"], seeded_pred.forward(*args)["uvd"])
+    worst = max(errs.values())
+    print(f"phase 12 export: b={EXPORT_BATCH} float32 on {meta['device']}: "
+          f"export {export_s:.1f} s, artifact {mb:.1f} MB (the state dict "
+          f"{weights_mb:.1f} MB), load {load_s:.1f} s; outputs against the eager Predictor.forward, TF32 off and "
+          f"cuDNN deterministic: "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+          f"(<= {EXPORT_REL}; uvd max |d| {uvd_abs:.3e} of max |uvd| "
+          f"{uvd_max:.3e}); uvd with TF32 off alone (not checked) "
+          f"{loose:.3e} ({card})", flush=True)
+    if not worst <= EXPORT_REL:
+        raise AssertionError(f"the exported program differs: {errs}")
+
+    def timed(f) -> list:
+        times = []
+        for _ in range(EXPORT_REPS + 1):       # the first is a warm-up
+            t0 = time.perf_counter()
+            f(*args)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return times[1:]
+
+    eager_before = timed(seeded_pred.forward)
+    reset_counts()
+    exported = timed(fn)
+    launches = read_counts("exported serving")
+    eager_after = timed(seeded_pred.forward)
+    calls = EXPORT_REPS + 1
+    if launches["soft_argmax_3d_fwd"] != calls \
+            or launches["soft_argmax_3d_bwd"] != 0:
+        raise AssertionError(f"{calls} calls of the exported program "
+                             f"launched {launches}")
+    exp_ms = statistics.median(exported)
+    eager_ms = statistics.median(eager_before + eager_after)
+    # one call of each traced on the device: busy time and launches
+    traced = {}
+    for name, f in (("exported", fn), ("eager", seeded_pred.forward)):
+        rows, _ = profile_device(lambda: f(*args))
+        traced[name] = dict(busy_ms=sum(r[0] for r in rows.values()),
+                            launches=sum(r[1] for r in rows.values()))
+        print(f"phase 12 export: {name} b={EXPORT_BATCH} forward traced: "
+              f"device busy {traced[name]['busy_ms']:.3f} ms, "
+              f"{traced[name]['launches']} device activities ({card})",
+              flush=True)
+    print(f"phase 12 export: {launches['soft_argmax_3d_fwd']} "
+          f"soft_argmax_3d_fwd launches in {calls} calls (1 a call); "
+          f"b={EXPORT_BATCH} forward median of {EXPORT_REPS}: exported "
+          f"{exp_ms:.3f} ms ({1e3 * EXPORT_BATCH / exp_ms:.1f} img/s), eager "
+          f"Predictor.forward {eager_ms:.3f} ms on the same crops before and "
+          f"after; phase 4's b={EXPORT_BATCH} request (preprocessing "
+          f"included) {phase4_ms:.3f} ms; TF32 as phase 4 ({card})",
+          flush=True)
+    return dict(export_s=export_s, artifact_mb=mb, weights_mb=weights_mb,
+                load_s=load_s,
+                rel_err=errs, launches=launches, exported_ms=exp_ms,
+                exported_ms_all=exported, eager_forward_ms=eager_ms,
+                eager_forward_ms_all=eager_before + eager_after,
+                phase4_request_ms=phase4_ms, traced=traced,
+                uvd_rel_err_nondeterministic=loose)
+
+
+def phase12_dispatch(device, card: str, calls: int = 200) -> dict:
+    """Host microseconds a call of the soft-argmax forward at the b=1
+    serving shape (7 cells of 64^3, float32): the wrapper alone, the
+    registered operator, and the operator on logits that need a gradient
+    (its autograd node too). Each is enqueued `calls` times between two
+    host stamps, a kernel taking ~0.01 ms, so the queue never blocks."""
+    from horopose_tpu_torch.ops.integral import soft_argmax_3d_op
+    from horopose_tpu_torch.ops.integral_cuda import soft_argmax_3d_fwd
+    x = torch.randn(7, 64, 64, 64, device=device)
+    xg = x.clone().requires_grad_()
+    ways = {"wrapper": lambda: soft_argmax_3d_fwd(x),
+            "operator": lambda: soft_argmax_3d_op(x),
+            "operator with autograd": lambda: soft_argmax_3d_op(xg)}
+    us = {}
+    for _ in range(2):                  # the first round warms up
+        for name, f in ways.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                f()
+            us[name] = 1e6 * (time.perf_counter() - t0) / calls
+            torch.cuda.synchronize()
+    print(f"phase 12 dispatch: soft-argmax forward at (7, 64, 64, 64) "
+          f"float32, host us a call over {calls}: "
+          f"{json.dumps({k: round(v, 2) for k, v in us.items()})} ({card})",
+          flush=True)
+    return us
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
@@ -2079,6 +2434,22 @@ def main() -> int:
 
     lap("11")
 
+    # ---- 12. the user URDF, the reference's weight files through the
+    # converter, and the exported serving forward, at full width ----
+    with tempfile.TemporaryDirectory() as tmp:
+        phase12 = dict(urdf=phase12_urdf(cfg, device, card, tmp))
+        lap("12 URDF")
+        phase12.update(convert=phase12_convert(
+            cfg, sd, predictors["float32"], device, card, tmp))
+        lap("12 convert")
+        phase12.update(export=phase12_export(
+            cfg, sd, predictors["float32"], device, card, tmp,
+            (reset_counts, read_counts), timings[("float32", 128)]))
+        phase12.update(dispatch_us=phase12_dispatch(device, card))
+    collect_garbage("after phase 12", card)
+
+    lap("12")
+
     # ---- 6. float32 comparisons, TF32 off everywhere ----
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2145,7 +2516,7 @@ def main() -> int:
                                            **files, test=harness),
                     stage3=stage3, variants=variants,
                     harness_with_plots=plots,
-                    loader_close_s=loader_close_s),
+                    loader_close_s=loader_close_s, weights_and_export=phase12),
         kernel_line("soft_argmax_3d_bwd", sam_src,
                     "horopose_tpu/ops/integral_pallas.py:56", bwd_rows,
                     bwd_launches, [b_train, *cell], dx_tol),

@@ -25,7 +25,7 @@ from __future__ import annotations
 import os
 import re
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 
 class AttrDict(dict):
@@ -42,6 +42,29 @@ class AttrDict(dict):
 
 
 LOCAL_DATA_DIR = Path(os.environ.get("HOROPOSE_DATA_DIR", "data"))
+DEPS_DIR = LOCAL_DATA_DIR / "deps"
+
+# the user's robot descriptions (Robot falls back to its built-in ones
+# when a file is absent)
+PANDA_DESCRIPTION_PATH = str(DEPS_DIR / "panda-description/panda.urdf")
+KUKA_DESCRIPTION_PATH = str(
+    DEPS_DIR / "kuka-description/iiwa_description/urdf/iiwa7.urdf")
+BAXTER_DESCRIPTION_PATH = str(
+    DEPS_DIR / "baxter-description/baxter_description/urdf/baxter.urdf")
+
+URDF_PATHS = {
+    "panda": PANDA_DESCRIPTION_PATH,
+    "kuka": KUKA_DESCRIPTION_PATH,
+    "baxter": BAXTER_DESCRIPTION_PATH,
+}
+
+
+def resolve_urdf_path(robot_type: str) -> Optional[str]:
+    """The user's URDF of `robot_type` under DEPS_DIR when the file
+    exists, else None (the built-in description)."""
+    p = URDF_PATHS.get(robot_type)
+    return p if p and os.path.exists(p) else None
+
 
 # PyYAML 1.1's implicit resolvers for the scalars of the subset
 _BOOL = {"yes": True, "no": False, "true": True, "false": False,

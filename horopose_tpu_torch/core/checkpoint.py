@@ -8,12 +8,17 @@ the `curr_best_*_DATASET_model.pk` templates.
 
 The port writes its own format: `torch.save` of {epoch, metric, model,
 optimizer, scheduler, ...} (state dicts), to a temporary file renamed into
-place. It also reads the JAX package's checkpoints, flax msgpack files of
-{epoch, metric, params, batch_stats, opt_state, step, ...}, with the
-`msgpack` module alone (`read_flax_msgpack`), and takes their weights
-through `tools/jax_weights.py` (`model_state_dict`). The optax optimizer
-state of a JAX run is not carried into `torch.optim` (ROADMAP queue 1
-item 4 left it out).
+place. It also reads two other payloads:
+
+- the JAX package's checkpoints, flax msgpack files of {epoch, metric,
+  params, batch_stats, opt_state, step, ...}, read with the `msgpack`
+  module alone (`read_flax_msgpack`). Their weights go through
+  `tools/jax_weights.py` (`model_state_dict`); `restore_state` also
+  carries optax's Adam moments, step count and schedule into the port's
+  `torch.optim.Adam` and LambdaLR, so a JAX run resumes in the port;
+- the reference's `.pk` files, `torch.save` of {epoch, auc_add,
+  model_state_dict, optimizer_state_dict, lr_scheduler_last_epoch}, whose
+  weights are under the port's names already.
 """
 
 from __future__ import annotations
@@ -104,9 +109,15 @@ def is_jax_payload(payload: Mapping) -> bool:
     return "params" in payload and "model" not in payload
 
 
+def is_reference_payload(payload: Mapping) -> bool:
+    """A reference checkpoint holds `model_state_dict`."""
+    return "model_state_dict" in payload and "model" not in payload
+
+
 def load_checkpoint_file(path: str) -> Dict[str, Any]:
-    """The payload: the port's (a zip that `torch.save` wrote), its tensors
-    on the CPU, or the JAX package's (flax msgpack), its arrays numpy."""
+    """The payload: the port's or the reference's (a zip that `torch.save`
+    wrote), its tensors on the CPU, or the JAX package's (flax msgpack),
+    its arrays numpy."""
     if zipfile.is_zipfile(path):
         return torch.load(path, map_location="cpu", weights_only=True)
     with open(path, "rb") as f:
@@ -116,30 +127,48 @@ def load_checkpoint_file(path: str) -> Dict[str, Any]:
 def model_state_dict(payload: Mapping, model: nn.Module
                      ) -> Dict[str, torch.Tensor]:
     """The payload's weights as `model`'s state dict: the port's `model`
-    entry, or a JAX payload's `params` and `batch_stats` mapped by
+    entry, the reference's `model_state_dict` entry, or a JAX payload's
+    `params` and `batch_stats` mapped by
     `tools/jax_weights.state_dict_from_jax`."""
-    if not is_jax_payload(payload):
-        return payload["model"]
-    from horopose_tpu_torch.tools.jax_weights import state_dict_from_jax
-    return state_dict_from_jax(model, payload["params"],
-                               payload.get("batch_stats") or {})
+    if is_jax_payload(payload):
+        from horopose_tpu_torch.tools.jax_weights import state_dict_from_jax
+        return state_dict_from_jax(model, payload["params"],
+                                   payload.get("batch_stats") or {})
+    if is_reference_payload(payload):
+        from horopose_tpu_torch.tools.torch_weights import state_dict_of
+        return state_dict_of(payload)
+    return payload["model"]
 
 
 def restore_state(state: TrainState, payload: Dict) -> TrainState:
     """Load a payload's model, optimizer and scheduler state into `state`
-    in place (strict: every key must match). A JAX payload restores the
-    model alone: with an optimizer to restore it raises, as the port does
-    not carry optax's Adam moments into torch.optim."""
-    if is_jax_payload(payload):
-        if state.optimizer is not None:
-            raise NotImplementedError(
-                "resuming a JAX run: its optax Adam moments are not "
-                "carried into torch.optim (left out of ROADMAP queue 1 "
-                "item 4); start from its weights instead (a weights-only "
-                "hand-off such as pretrained_weight_on_synth)")
-        state.model.load_state_dict(model_state_dict(payload, state.model))
+    in place (strict: every key must match).
+
+    A JAX payload's optax state goes through `tools/jax_weights.py::
+    adam_state_dicts_from_jax` (the Adam moments, the step count, the
+    schedule's position). A reference payload restores the model only: its
+    optimizer state names parameters by their place in the reference
+    model's order, which the port does not share, so with an optimizer to
+    restore it raises."""
+    state.model.load_state_dict(model_state_dict(payload, state.model))
+    if state.optimizer is None:
         return state
-    state.model.load_state_dict(payload["model"])
+    if is_jax_payload(payload):
+        from horopose_tpu_torch.tools.jax_weights import \
+            adam_state_dicts_from_jax
+        opt_sd, sched_sd = adam_state_dicts_from_jax(
+            state.model, state.optimizer, state.scheduler,
+            payload["opt_state"])
+        state.optimizer.load_state_dict(opt_sd)
+        if sched_sd is not None:
+            state.scheduler.load_state_dict(sched_sd)
+        return state
+    if is_reference_payload(payload):
+        raise ValueError(
+            "a reference checkpoint's optimizer state is keyed by the "
+            "reference model's parameter order, which the port does not "
+            "share; start from its weights instead "
+            "(pretrained_weight_on_synth, or Predictor.from_experiment)")
     for name in ("optimizer", "scheduler"):
         part = getattr(state, name)
         if part is not None:

@@ -25,7 +25,10 @@ once a row, so a logit costs an exp and a few float32 operations, and
 `vector_loads` of x and of dx choose 16-byte or scalar access.
 
 A CPU tensor takes the plain version (`ops.integral.soft_argmax_3d_*_plain`).
-A CUDA tensor always takes the kernel or raises.
+A CUDA tensor always takes the kernel or raises. The two wrappers are the
+CUDA implementations of the operators `horopose::soft_argmax_3d_fwd` and
+`horopose::soft_argmax_3d_bwd` that `ops/integral.py` registers, through
+which the model, its gradient and an exported program reach them.
 """
 
 from __future__ import annotations

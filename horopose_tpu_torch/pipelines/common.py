@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from horopose_tpu_torch import constants as C
+from horopose_tpu_torch.config import resolve_urdf_path
 from horopose_tpu_torch.data.dream import DreamDataset
 from horopose_tpu_torch.data.samplers import (DataLoader, PartialSampler,
                                               WeightedRandomSampler)
@@ -138,7 +139,12 @@ def crop_sizes(cfg: FullNetConfig) -> Tuple[int, int]:
 
 
 def make_robot(cfg: FullNetConfig, device="cuda") -> Robot:
-    return Robot(cfg.urdf_robot_name, device=device)
+    """The robot of `cfg.urdf_robot_name`, from the user's URDF under
+    `$HOROPOSE_DATA_DIR/deps` when there is one (`config.resolve_urdf_
+    path`), else from the built-in description."""
+    return Robot(cfg.urdf_robot_name,
+                 urdf_path=resolve_urdf_path(cfg.urdf_robot_name),
+                 device=device)
 
 
 def build_fullnet(cfg: FullNetConfig,
@@ -217,9 +223,10 @@ def make_pnp_fn(ds_names):
 def _backbone_artifact(path: str, backbone_name: str):
     """A backbone weight file -> (state dict under the backbone's own
     names, source leaves that have no name there): a `.msgpack` of flax
-    variables (`tools/convert.py`), or a raw torch state dict (`.pth`,
-    `.pt`, `.pk`), whose keys are already the port's (a `state_dict` or
-    `model_state_dict` entry is unwrapped)."""
+    variables (the JAX package's converter), or a torch state dict
+    (`.pth`, `.pt`, `.pk`: the reference's ImageNet files or the port's
+    `tools/convert.py` output), whose keys are already the port's (a
+    `state_dict` or `model_state_dict` entry is unwrapped)."""
     if path.endswith(".msgpack"):
         from horopose_tpu_torch.core.checkpoint import read_flax_msgpack
         from horopose_tpu_torch.tools.jax_weights import \
@@ -229,12 +236,8 @@ def _backbone_artifact(path: str, backbone_name: str):
         return backbone_state_dict_from_jax(tree.get("params", {}),
                                             tree.get("batch_stats", {}),
                                             backbone_name)
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("model_state_dict", "state_dict"):
-        if isinstance(payload, dict) and key in payload:
-            payload = payload[key]
-    return {k: v for k, v in payload.items()
-            if isinstance(v, torch.Tensor)}, []
+    from horopose_tpu_torch.tools.torch_weights import load_torch_file
+    return load_torch_file(path), []
 
 
 def apply_pretrained_backbone(model: nn.Module, weights_path: str,

@@ -62,8 +62,10 @@ S2R_TAGS = ("loss", "loss_mask", "loss_iou", "loss_scale",
 
 def load_seg_teacher(cfg, image_hw=(480, 640), device="cuda") -> SegTeacher:
     """The CtRNet teacher of the train set's camera, from
-    `models/panda_segmentation/<camera>.msgpack` (the JAX package's
-    converted weights, read without flax).
+    `models/panda_segmentation/<camera>.pt` (the CtRNet file converted by
+    `python -m horopose_tpu_torch.tools.convert ctrnet_seg`), else from
+    `<camera>.msgpack` (the JAX package's converted weights, read without
+    flax).
 
     A missing teacher is an error: the teacher's masks are the stage's only
     training signal. `allow_random_teacher: True` opts into a random one
@@ -80,27 +82,34 @@ def load_seg_teacher(cfg, image_hw=(480, 640), device="cuda") -> SegTeacher:
                 f"{', '.join(REAL_DS_SHORTS)}). Point train_ds_names at one "
                 "of them, or set allow_random_teacher: True for a debug run.")
         camera = "azure"        # debug only: no weights are loaded
-    path = os.path.join("models", "panda_segmentation", f"{camera}.msgpack")
+    folder = os.path.join("models", "panda_segmentation")
+    path = os.path.join(folder, f"{camera}.pt")
+    jax_path = os.path.join(folder, f"{camera}.msgpack")
     teacher = SegTeacher.init_random(0, image_hw=image_hw)
     if os.path.exists(path):
+        teacher.model.load_state_dict(
+            torch.load(path, map_location="cpu", weights_only=True))
+        print(f"[sim2real] loaded segmentation teacher: {path}")
+    elif os.path.exists(jax_path):
         from horopose_tpu_torch.tools.jax_weights import \
             seg_teacher_state_dict_from_jax
-        with open(path, "rb") as f:
+        with open(jax_path, "rb") as f:
             variables = read_flax_msgpack(f.read())
         teacher.model.load_state_dict(seg_teacher_state_dict_from_jax(
             variables["params"], variables["batch_stats"]))
-        print(f"[sim2real] loaded segmentation teacher: {path}")
+        print(f"[sim2real] loaded segmentation teacher: {jax_path}")
     elif cfg.get("allow_random_teacher"):
-        print(f"[sim2real] WARNING: no converted teacher weights at {path}; "
-              "proceeding with a RANDOM teacher because "
+        print(f"[sim2real] WARNING: no teacher weights at {path} or "
+              f"{jax_path}; proceeding with a RANDOM teacher because "
               "allow_random_teacher=True (masks are meaningless)")
     else:
         raise FileNotFoundError(
-            f"no segmentation teacher weights at {path}. Convert the CtRNet "
-            f"checkpoint first (python -m horopose_tpu.tools.convert "
-            f"ctrnet_seg {camera}.pth {path}) or set allow_random_teacher: "
-            "True to train against a random teacher (debug only: the "
-            "self-supervised losses would be garbage).")
+            f"no segmentation teacher weights at {path} or {jax_path}. "
+            f"Convert the CtRNet checkpoint first (python -m "
+            f"horopose_tpu_torch.tools.convert ctrnet_seg {camera}.pth "
+            f"{path}) or set allow_random_teacher: True to train against a "
+            "random teacher (debug only: the self-supervised losses would "
+            "be garbage).")
     return teacher.to(device)
 
 

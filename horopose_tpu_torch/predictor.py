@@ -8,7 +8,7 @@ original frame.
 
 Usage:
     pred = Predictor(FullNetConfig(), state_dict, device="cuda")
-    pred = Predictor.from_experiment("experiments/<exp>")   # JAX or port
+    pred = Predictor.from_experiment("experiments/<exp>")   # any checkpoint
     out = pred(images_uint8, K, bboxes=det_bboxes)   # (B, H, W, 3), (B, 3, 3)
     out["joints"], out["rotation"], out["translation"],
     out["keypoints_3d"], out["keypoints_2d"]
@@ -29,6 +29,7 @@ from horopose_tpu_torch.ops.transforms import (k_value_from_bbox,
                                                project_points)
 from horopose_tpu_torch.pipelines.common import (FullNetConfig, build_fullnet,
                                                  crop_sizes, make_robot)
+from horopose_tpu_torch.tools.export import ServingModule
 
 
 class Predictor:
@@ -41,19 +42,21 @@ class Predictor:
         self.model = build_fullnet(config, dtype=dtype)
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
+        # the forward the export tool exports, from the same pieces
+        self.serving = ServingModule(self.model, self.robot,
+                                     config.reference_keypoint_id)
         # the two crops share the bbox and differ only in resolution
         self.root_size, self.size = crop_sizes(config)
-        self.ref = int(config.reference_keypoint_id)
 
     @classmethod
     def from_experiment(cls, exp_path: str,
                         ckpt_name: str = "curr_best_auc(add)_model.pk",
                         device="cuda", dtype: torch.dtype = torch.float32
                         ) -> "Predictor":
-        """The model of an experiment directory, the port's or the JAX
-        package's: its `config.yaml` and its checkpoint `ckpt/<ckpt_name>`
-        (random weights from GLOBAL_SEED, with a warning, when that file
-        is missing)."""
+        """The model of an experiment directory, the port's, the JAX
+        package's or the reference's: its `config.yaml` and its checkpoint
+        `ckpt/<ckpt_name>` (random weights from GLOBAL_SEED, with a
+        warning, when that file is missing)."""
         from horopose_tpu_torch.config import make_cfg
         from horopose_tpu_torch.core.checkpoint import (load_checkpoint_file,
                                                         model_state_dict)
@@ -113,13 +116,9 @@ class Predictor:
     def forward(self, crops: torch.Tensor, crops_root: torch.Tensor,
                 k_values: torch.Tensor, K_crops: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
-        """FullNet forward and FK lift on preprocessed device tensors."""
-        x = (crops.permute(0, 3, 1, 2).float() / 255.0).contiguous()
-        xr = (crops_root.permute(0, 3, 1, 2).float() / 255.0).contiguous()
-        out = self.model(x, xr, k_values, K_crops)
-        out["xyz_fk"] = self.robot.get_keypoints_root(
-            out["pose"], out["rot"], out["trans"], root=self.ref)
-        return out
+        """FullNet forward and FK lift on preprocessed device tensors
+        (`tools/export.py::ServingModule.outputs`)."""
+        return self.serving.outputs(crops, crops_root, k_values, K_crops)
 
     def __call__(self, images: np.ndarray, K: np.ndarray,
                  bboxes: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:

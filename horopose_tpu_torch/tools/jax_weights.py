@@ -16,12 +16,15 @@ Inside a flax block the submodules are auto-named in creation order
 (`Conv_0..3`, `BatchNorm_0..3`, the downsample conv/bn last), and so is
 the RootNet's backbone (`HRNet_0` / `ResNet_0`, the port's `backbone`).
 Input is nested dicts of numpy arrays; no JAX is needed. Every flax leaf
-must be consumed, or the conversion raises.
+must be consumed, or the conversion raises. The same pairs and layout
+maps carry optax's Adam moments, trees of the params' shape
+(`params_like_from_jax`), into `torch.optim.Adam` when the port resumes a
+JAX run (`core/checkpoint.py::restore_state`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,29 +176,25 @@ def _seg_teacher_pairs() -> Iterator[_Pair]:
     yield "conv", "cls_final", ("cls_final",)
 
 
-def _convert(pairs: Iterator[_Pair], params: Mapping, batch_stats: Mapping):
-    """Every pair whose flax module is present -> (its torch tensors,
-    float32 CPU; the flax leaves no pair took, as path tuples)."""
-    sd: Dict[str, np.ndarray] = {}
-    used = set()
-
-    def take(tree, kind, path, leaf):
-        used.add((kind,) + path + (leaf,))
-        return np.asarray(_get(tree, path)[leaf], np.float32)
+def _param_leaves(pairs: Iterator[_Pair], params: Mapping, used: set
+                  ) -> Iterator[Tuple[str, np.ndarray]]:
+    """(torch key, array) of every trainable flax leaf of the pairs whose
+    module is present in `params`, in the torch layout: the weights, the
+    biases and the BatchNorm scales and offsets. `params` may be the
+    parameters or any tree of their shape (Adam's moments)."""
+    def take(path, leaf):
+        used.add(("params",) + path + (leaf,))
+        return np.asarray(_get(params, path)[leaf], np.float32)
 
     for kind, tk, fp in pairs:
         node = _get(params, fp)
         if node is None:
             continue            # module absent in this configuration
         if kind == "bn":
-            sd[f"{tk}.weight"] = take(params, "params", fp, "scale")
-            sd[f"{tk}.bias"] = take(params, "params", fp, "bias")
-            sd[f"{tk}.running_mean"] = take(batch_stats, "batch_stats", fp,
-                                            "mean")
-            sd[f"{tk}.running_var"] = take(batch_stats, "batch_stats", fp,
-                                           "var")
+            yield f"{tk}.weight", take(fp, "scale")
+            yield f"{tk}.bias", take(fp, "bias")
             continue
-        w = take(params, "params", fp, "kernel")
+        w = take(fp, "kernel")
         if kind == "conv":
             w = np.transpose(w, (3, 2, 0, 1))
         elif kind == "deconv":
@@ -204,16 +203,36 @@ def _convert(pairs: Iterator[_Pair], params: Mapping, batch_stats: Mapping):
             w = np.transpose(w)
         else:                   # dense_as_conv
             w = np.transpose(w)[:, :, None, None]
-        sd[f"{tk}.weight"] = w
+        yield f"{tk}.weight", w
         if "bias" in node:
-            sd[f"{tk}.bias"] = take(params, "params", fp, "bias")
+            yield f"{tk}.bias", take(fp, "bias")
 
+
+def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Tensors of their own (a JAX array's numpy view is read-only)."""
+    return {k: torch.from_numpy(np.array(v, order="C"))
+            for k, v in sd.items()}
+
+
+def _convert(pairs: Iterator[_Pair], params: Mapping, batch_stats: Mapping):
+    """Every pair whose flax module is present -> (its torch tensors,
+    float32 CPU; the flax leaves no pair took, as path tuples)."""
+    pairs = list(pairs)
+    used = set()
+    sd = dict(_param_leaves(pairs, params, used))
+    for kind, tk, fp in pairs:
+        if kind != "bn" or _get(params, fp) is None:
+            continue
+        for torch_name, flax_name in (("running_mean", "mean"),
+                                      ("running_var", "var")):
+            used.add(("batch_stats",) + fp + (flax_name,))
+            sd[f"{tk}.{torch_name}"] = np.asarray(
+                _get(batch_stats, fp)[flax_name], np.float32)
     left = [("params",) + p for p in _leaf_paths(params)
             if ("params",) + p not in used]
     left += [("batch_stats",) + p for p in _leaf_paths(batch_stats)
              if ("batch_stats",) + p not in used]
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in sd.items()}, left
+    return _tensors(sd), left
 
 
 def _state_dict_from_jax(pairs: Iterator[_Pair], params: Mapping,
@@ -269,18 +288,129 @@ def seg_teacher_state_dict_from_jax(params: Mapping, batch_stats: Mapping
     return _state_dict_from_jax(_seg_teacher_pairs(), params, batch_stats)
 
 
-def state_dict_from_jax(model, params: Mapping, batch_stats: Mapping
-                        ) -> Dict[str, torch.Tensor]:
-    """The flax variables of the JAX twin of `model` (a FullNet or a
-    RootNet of the port) -> `model`'s state dict, the architecture read
-    from the model."""
+def _model_pairs(model) -> Iterator[_Pair]:
+    """The pairs of the JAX twin of `model` (a FullNet or a RootNet of the
+    port), the architecture read from the model."""
     from horopose_tpu_torch.models.depth_net import RootNet
     from horopose_tpu_torch.models.full_net import FullNet
     if isinstance(model, FullNet):
-        return fullnet_state_dict_from_jax(params, batch_stats,
-                                           model.backbone_name,
-                                           model.rootnet_backbone_name)
+        return _fullnet_pairs(model.backbone_name,
+                              model.rootnet_backbone_name)
     if isinstance(model, RootNet):
-        return rootnet_state_dict_from_jax(params, batch_stats,
-                                           model.backbone_name)
+        return _rootnet_pairs(model.backbone_name)
     raise TypeError(f"no JAX weight map for {type(model).__name__}")
+
+
+def state_dict_from_jax(model, params: Mapping, batch_stats: Mapping
+                        ) -> Dict[str, torch.Tensor]:
+    """The flax variables of the JAX twin of `model` (a FullNet or a
+    RootNet of the port) -> `model`'s state dict."""
+    return _state_dict_from_jax(_model_pairs(model), params, batch_stats)
+
+
+def params_like_from_jax(model, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A tree of the JAX twin's `params` shape (optax's Adam moments `mu`
+    and `nu`) -> {name of `model`'s parameter: tensor}, through the same
+    pairs and layout maps as the weights; BatchNorm has no statistics
+    here. Raises if a leaf is left over."""
+    used = set()
+    sd = dict(_param_leaves(_model_pairs(model), tree, used))
+    left = [p for p in _leaf_paths(tree) if ("params",) + p not in used]
+    if left:
+        raise ValueError(f"{len(left)} JAX leaves have no torch parameter, "
+                         f"e.g. {'/'.join(left[0])}")
+    return _tensors(sd)
+
+
+def _adam_in_chain(opt_state: Mapping) -> Tuple[Mapping, Optional[Mapping]]:
+    """(adam's state {count, mu, nu}, the state {count} of the learning
+    rate schedule right after it, or None) in a serialized optax state.
+    The chain is a tuple, {"0": ..., "1": ...}, and adam's place in it
+    depends on the config (clipping and weight decay come first when
+    set), so it is found by structure."""
+    found = []
+
+    def walk(node: Mapping):
+        keys = sorted(node, key=lambda k: (not k.isdigit(),
+                                           int(k) if k.isdigit() else 0, k))
+        for i, k in enumerate(keys):
+            child = node[k]
+            if not isinstance(child, Mapping):
+                continue
+            if {"count", "mu", "nu"} <= set(child):
+                after = node[keys[i + 1]] if i + 1 < len(keys) else None
+                sched = (after if isinstance(after, Mapping)
+                         and set(after) == {"count"} else None)
+                found.append((child, sched))
+            else:
+                walk(child)
+
+    walk(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"the JAX optimizer state holds {len(found)} Adam "
+                         "states {count, mu, nu}; the port resumes exactly "
+                         "one")
+    return found[0]
+
+
+def adam_state_dicts_from_jax(model, optimizer: torch.optim.Optimizer,
+                              scheduler, opt_state: Mapping
+                              ) -> Tuple[Dict, Optional[Dict]]:
+    """A JAX run's optax state (`horopose_tpu/core/engine.py::
+    make_optimizer`: clip, decay, adam) -> (a state dict for the port's
+    `torch.optim.Adam` over `model`'s parameters, one for its LambdaLR or
+    None), to load with their `load_state_dict`.
+
+    - `exp_avg` / `exp_avg_sq` are adam's `mu` / `nu` through the weights'
+      pairs and layout maps, keyed by each parameter's place in
+      `optimizer.param_groups`; a parameter without a moment, or a moment
+      without a parameter in the optimizer, raises.
+    - `step` is adam's `count`: both bias corrections count the updates
+      taken, and the next update is number count + 1.
+    - The scheduler's `last_epoch` is the schedule's own count: the port's
+      LambdaLR counts optimizer steps (`core/engine.py::make_optimizer`),
+      and optax's next update takes lr(count), so each group's next LR is
+      base_lr * lambda(count), as optax's."""
+    mu_nu, sched = _adam_in_chain(opt_state)
+    count = int(np.asarray(mu_nu["count"]))
+    mu = params_like_from_jax(model, mu_nu["mu"])
+    nu = params_like_from_jax(model, mu_nu["nu"])
+    names = {id(p): n for n, p in model.named_parameters()}
+    opt_sd = optimizer.state_dict()
+    state, taken, i = {}, set(), 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names.get(id(p))
+            if name is None:
+                raise ValueError(f"optimizer parameter {i} is not a "
+                                 "parameter of the model")
+            if name not in mu:
+                raise ValueError(f"torch parameter {name} has no Adam "
+                                 "moment in the JAX optimizer state")
+            if tuple(mu[name].shape) != tuple(p.shape):
+                raise ValueError(f"{name}: Adam moment of shape "
+                                 f"{tuple(mu[name].shape)}, parameter of "
+                                 f"shape {tuple(p.shape)}")
+            state[i] = {"step": torch.tensor(float(count)),
+                        "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+            taken.add(name)
+            i += 1
+    left = sorted(set(mu) - taken)
+    if left:
+        raise ValueError(f"{len(left)} JAX Adam moments have no parameter "
+                         f"in the optimizer, e.g. {left[0]}")
+    opt_sd["state"] = state
+    if scheduler is None:
+        return opt_sd, None
+    if not isinstance(scheduler, torch.optim.lr_scheduler.LambdaLR):
+        raise TypeError(f"resuming a JAX schedule into "
+                        f"{type(scheduler).__name__}: the port's schedule "
+                        "is a LambdaLR")
+    steps = count if sched is None else int(np.asarray(sched["count"]))
+    lrs = [base * lam(steps) for base, lam in
+           zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, lr in zip(opt_sd["param_groups"], lrs):
+        group["lr"] = lr
+    sched_sd = scheduler.state_dict()
+    sched_sd.update(last_epoch=steps, _step_count=steps + 1, _last_lr=lrs)
+    return opt_sd, sched_sd

@@ -173,14 +173,19 @@ def test_model_state_dict_takes_either_payload(jax_experiment, tmp_path):
     for k in want:
         assert torch.equal(sd[k], want[k]), k
     model.load_state_dict(sd)
-    # weights-only restore of a JAX payload; with an optimizer it refuses
+    # weights-only restore of a JAX payload; with an optimizer, optax's
+    # Adam state (a fresh run's: count 0, zero moments) restores too
     other = build_fullnet(cfg)
     restore_state(TrainState(other), payload)
     assert torch.equal(other.state_dict()["final_layer.weight"],
                        want["final_layer.weight"])
     opt = torch.optim.Adam(other.parameters())
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        restore_state(TrainState(other, opt), payload)
+    restore_state(TrainState(other, opt), payload)
+    state = opt.state_dict()["state"]
+    assert len(state) == len(list(other.parameters()))
+    for s in state.values():
+        assert int(s["step"]) == 0
+        assert not s["exp_avg"].any() and not s["exp_avg_sq"].any()
 
 
 def test_checkpoint_epoch_and_keeper_read_jax_files(jax_experiment, tmp_path):

@@ -248,7 +248,7 @@ def test_kernel_wrapper_rejects_devices_without_a_kernel():
             torch.empty(2, 2, **meta), torch.empty(2, 3, **meta))
 
 
-# ---- the backward: closed form, autograd Function, JAX gradients ----
+# ---- the backward: closed form, the registered operator, JAX gradients ----
 
 # f32 gradients, as tests/test_integral_pallas.py holds the Pallas backward
 GRAD_ATOL = 1e-6
@@ -278,7 +278,7 @@ def test_soft_argmax_backward_matches_jax_grad(shape, rng):
     _, e, stats = TI.soft_argmax_3d_fwd_plain(x)
     closed = TI.soft_argmax_3d_bwd_plain(x, e, stats, g).reshape(logits.shape)
     xf = x.clone().requires_grad_()
-    (TI.SoftArgmax3d.apply(xf) * g).sum().backward()
+    (TI.soft_argmax_3d_op(xf)[0] * g).sum().backward()
     xa = x.clone().requires_grad_()
     (TI.soft_argmax_3d_fwd_plain(xa)[0] * g).sum().backward()
     for got in (closed, xf.grad.reshape(logits.shape),
@@ -339,13 +339,13 @@ def test_soft_argmax_backward_gives_zero_at_minus_inf(rng):
 
 
 def test_bf16_backward_returns_bf16_of_the_f32_gradient(rng):
-    """Under autocast the head emits bf16 logits: the Function saves them
+    """Under autocast the head emits bf16 logits: the operator saves them
     and hands back a bf16 gradient, the f32 closed form rounded once."""
     x = torch.from_numpy(rng.randn(6, 4, 8, 8).astype(np.float32)
                          ).to(torch.bfloat16)
     g = _t(rng.randn(6, 3).astype(np.float32))
     xb = x.clone().requires_grad_()
-    (TI.SoftArgmax3d.apply(xb) * g).sum().backward()
+    (TI.soft_argmax_3d_op(xb)[0] * g).sum().backward()
     assert xb.grad.dtype == torch.bfloat16
     _, e, stats = TI.soft_argmax_3d_fwd_plain(x.float())
     ref = TI.soft_argmax_3d_bwd_plain(x.float(), e, stats, g)

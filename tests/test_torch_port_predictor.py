@@ -185,7 +185,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'horopose_tpu'))\n"
-        "assert len(names) >= 55, names\n"
+        "assert len(names) >= 58, names\n"
         "assert {'horopose_tpu_torch.core.engine', "
         "'horopose_tpu_torch.core.losses', 'horopose_tpu_torch.config', "
         "'horopose_tpu_torch.core.checkpoint', "
@@ -215,7 +215,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'horopose_tpu_torch.ops.rasterizer', "
         "'horopose_tpu_torch.pipelines.train_sim2real', "
         "'horopose_tpu_torch.core.profiling', "
-        "'horopose_tpu_torch.core.shaded_render'} <= set(names), "
+        "'horopose_tpu_torch.core.shaded_render', "
+        "'horopose_tpu_torch.tools.torch_weights', "
+        "'horopose_tpu_torch.tools.convert', "
+        "'horopose_tpu_torch.tools.export'} <= set(names), "
         "names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
