@@ -9,7 +9,9 @@ toolkit:
 Phases, each of which raises on failure:
   1. the card: its name and power limit (nvidia-smi), and what the data
      path and a flax-checkpoint reader could use on the machine (PIL,
-     yaml, cv2, msgpack, libjpeg's header);
+     yaml, cv2, msgpack, libjpeg's header, and whether the port's native
+     library, built here with g++, decodes with libjpeg or leaves it to
+     PIL);
   2. build every hand-written kernel from `horopose_tpu_torch/csrc/` with
      nvcc for sm_90a, one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
@@ -47,7 +49,7 @@ Phases, each of which raises on failure:
      same step on the CPU at b=2;
   8. stage 1 at full width: `configs/panda/depthnet.yaml` read by the
      port's `config.make_cfg` (hrnet32 DepthNet, 256x256 crops, b=64),
-     `pipelines.train_depthnet` for one epoch of 12 steps on synthetic
+     `pipelines.train_depthnet` for one epoch of 8 steps on synthetic
      batches and a validation of 2, in float32 and bfloat16, its
      checkpoint written and reloaded; step time, a torch.profiler
      breakdown and the cuDNN time of the hrnet32 branch-0 3x3 convs in a
@@ -141,10 +143,34 @@ Phases, each of which raises on failure:
      all-reduce times are printed, which say nothing about scaling; (c)
      under two ranks `train_sim2real` and a `mesh_shape` of [1] must be
      refused. Every child has a timeout and is killed on a failure;
+  14. the learning demo's slice: (a) the memorization regression of
+     `tests/test_auc_regression.py` (`memorization_run`: 4 noise frames
+     with eval = train, resnet18 backbones at 64x64, b=4, up to 450
+     one-step epochs from the port's loader with no workers, in float32
+     with TF32 off and cuDNN's deterministic algorithms, as the JAX test
+     runs on the CPU): the ADD AUC with batch statistics must reach 0.70
+     and with running statistics 0.15, every loss finite, the kernels
+     launched once a step and once an evaluation forward; (b)
+     `cfg.remat` at the flagship's width on phase 5's batch and weights,
+     f32 and bf16: one step with remat and one without from the same
+     state under `deterministic_convs`, their losses, gradients and
+     BatchNorm statistics (each counter at 1) at the CPU test's
+     tolerances; then each one's step ms, peak memory (and in f32 a
+     profiled step) and the largest batch up to 256 that steps; (c) the native C++ crop
+     against `data/crop.py` on the host over 256 random 480x640 frames
+     and bboxes (some partly outside) to 256^2, at most one level apart
+     on at most 0.1% of values, which library decodes the JPEGs, and
+     phase 9's loader rate beside it; (d) `python -m
+     horopose_tpu_torch.scripts.demo_learn` with 128 + 32 rendered frames,
+     10 epochs at b=32, at full width in a child process (`chip_smoke.py
+     --demo`, deterministic convs): it must exit 0, print a progression row with a finite
+     loss for every epoch, end with a lower mean training loss than it
+     began, and launch the kernels once a step, a validation batch and a
+     harness forward; its ADD AUC is printed, not gated;
   7. one JSON line describing every kernel, and as the last line
      {"ok": true, "device": {...}}.
 
-They run in the order 1-5, 8, 9, 10, 11, 12, 13, 6, 7: phases 8-12 keep
+They run in the order 1-5, 8, 9, 10, 11, 12, 13, 14, 6, 7: phases 8-12 keep
 cuDNN's default TF32 for float32, as phases 4 and 5 do (phases 11-13
 turn it off for their comparisons), and phase 8's b=2 comparison runs
 with phase 6's. Each phase prints its wall time. Phases 9 and 10 close their
@@ -162,6 +188,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import os
 import statistics
 import sys
@@ -221,7 +248,7 @@ SEED = 0
 STEPS_PER_EPOCH = 104950 // 64
 STAGE1_CONFIG = os.path.join("configs", "panda", "depthnet.yaml")
 STAGE2_CONFIG = os.path.join("configs", "panda", "full.yaml")
-STAGE1_STEPS, STAGE1_WARMUP, STAGE1_VAL_BATCHES = 12, 2, 2
+STAGE1_STEPS, STAGE1_WARMUP, STAGE1_VAL_BATCHES = 8, 2, 2
 # phase 9: DREAM-layout sets written from a seed, 480x640 noise JPEGs; the
 # train set is one epoch of 6 steps at b=64, the test set 150 frames, so
 # its last batch is partial at b=64 (64 + 64 + 22) and at b=128 (128 + 22)
@@ -230,7 +257,7 @@ STAGE2_TRAIN_FRAMES, STAGE2_TEST_FRAMES, TEST_BATCH = 384, 150, 128
 # 10 calls after one warm-up): "all" and "other" each launch the
 # soft-argmax forward once a call
 FPS_ITERS = 10
-# libjpeg's header, which the JAX package's native decoder builds against
+# libjpeg's header, which the native JPEG decode builds against
 JPEG_HEADER = "/usr/include/jpeglib.h"
 
 
@@ -1692,7 +1719,7 @@ VARIANTS = {
                rot_iterative_matmul=True),
     "V2": dict(direct_reg_rot=True, rotation_dim=4),
 }
-VARIANT_SERVE_REPS = {1: 20, 128: 5}
+VARIANT_SERVE_REPS = {1: 10, 128: 3}
 VARIANT_WARMUP, VARIANT_STEPS = 2, 5      # the b=64 step, float32
 
 
@@ -2755,6 +2782,436 @@ def phase13_two_ranks(cfg, train_sd, batch, config: str, device, card: str,
                                    for o in outs})
 
 
+# phase 14: the learning demo's slice. (a) the memorization regression of
+# tests/test_auc_regression.py: 4 noise frames at 480x640 with eval =
+# train, resnet18 backbones at 64x64, b=4, lr 1e-3 with the exponential
+# schedule, up to 450 one-step epochs, evaluated every 50 from epoch 300
+# with running statistics (validate_full) and with batch statistics
+MEMO_EPOCHS, MEMO_EVAL_EVERY, MEMO_EVAL_FROM = 450, 50, 300
+MEMO_BATCH_STATS_AUC, MEMO_RUNNING_AUC = 0.70, 0.15
+MEMO_STOP = (0.75, 0.20)   # both bars passed with room: stop early
+MEMO_CONFIG = dict(
+    exp_name="aucreg", urdf_robot_name="panda", batch_size=4, epoch_size=4,
+    n_epochs=MEMO_EPOCHS, n_dataloader_workers=0, image_size=64.0, lr=1e-3,
+    clip_gradient=5.0, use_schedule=True, schedule_type="exponential",
+    n_epochs_warmup=5, start_decay=150, end_decay=400, exponent=0.99,
+    jitter=False, other_aug=False, occlusion=False, rootnet_flip=False,
+    use_rootnet_with_reg_int_shared_backbone=True, backbone_name="resnet18",
+    rootnet_backbone_name="resnet18", pose_loss_weight=1.0,
+    rot_loss_weight=1.0, trans_loss_weight=1.0, uv_loss_weight=1.0,
+    depth_loss_weight=10.0, kp2d_loss_weight=10.0, kp3d_loss_weight=10.0,
+    kp2d_int_loss_weight=10.0, kp3d_int_loss_weight=10.0,
+    align_3d_loss_weight=0.0, reference_keypoint_id=3, fix_root=True,
+    p_dropout=0.0)
+# (b) cfg.remat at the flagship's width: the CPU test's tolerances
+# (tests/test_torch_port_remat.py, from tests/test_remat.py)
+REMAT_LOSS_RTOL = 1e-6
+REMAT_GRAD_ATOL, REMAT_GRAD_RTOL = 2e-5, 1e-4
+REMAT_STAT_TOL = 1e-6
+REMAT_TIMED_STEPS = 3
+REMAT_PROBE_BATCHES = (128, 256)     # after b=64, doubling up to 256
+# (c) the native crop against data/crop.py over frames of phase 9's size
+CROP_FRAMES, CROP_SIZE = 256, 256
+CROP_MAX_OFF_BY_ONE = 1e-3
+# (d) the demo, short, at full width on the card. 10 epochs of 4 steps:
+# the JAX initialisers start the root depth at about 0, where the 2-D
+# keypoint losses are singular, and over 4 epochs the mean loss rose in
+# 2 of 4 runs before it fell (PERF.md §6)
+DEMO_ARGS = ("--n-train", "128", "--n-test", "32", "--epochs", "10",
+             "--batch-size", "32")
+DEMO_TIMEOUT_S = 300
+
+
+def write_yaml(path: str, values: dict) -> str:
+    """`values` as `key : value` lines, the subset config.make_cfg reads."""
+    with open(path, "w") as f:
+        for k, v in values.items():
+            f.write(f"{k} : {json.dumps(v) if isinstance(v, str) else v}\n")
+    return path
+
+
+def memorization_run(tmp: str, device, card: str = "") -> dict:
+    """The memorization regression (MEMO_*): trains through
+    `build_full_train_step` from the port's DREAM loader and evaluates
+    the held-out (= train) set with the running statistics
+    (`validate_full`) and with batch statistics (train-mode BatchNorm on
+    copies of its statistics, `batchnorm_statistics_on_copies`). Returns
+    both AUCs by epoch, the losses, the steps and the eval forwards."""
+    from collections import defaultdict
+    from horopose_tpu_torch import constants as C
+    from horopose_tpu_torch.config import make_cfg
+    from horopose_tpu_torch.core.engine import (_forward,
+                                                build_full_eval_step,
+                                                build_full_train_step,
+                                                make_optimizer, prepare_gt)
+    from horopose_tpu_torch.core.loggers import create_logger
+    from horopose_tpu_torch.core.metrics import (compute_metrics_batch,
+                                                 summary_add_pck)
+    from horopose_tpu_torch.models.common import \
+        batchnorm_statistics_on_copies
+    from horopose_tpu_torch.parallel.prefetch import prefetch_to_device
+    from horopose_tpu_torch.pipelines.common import (FullNetConfig,
+                                                     get_dataloaders,
+                                                     make_robot)
+    from horopose_tpu_torch.pipelines.train_full import (host_numpy,
+                                                         init_fullnet_state,
+                                                         seeded_fullnet,
+                                                         validate_full)
+    from horopose_tpu_torch.tools.synth_dream import \
+        make_synthetic_dream_dataset
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "dream")
+    train_dir = make_synthetic_dream_dataset(data, "panda", n_images=4,
+                                             split="train_dr", seed=0)
+    # the same seed: the same frames, so eval = train
+    make_synthetic_dream_dataset(data, "panda", n_images=4, split="test_dr",
+                                 seed=0)
+    cfg = make_cfg(write_yaml(os.path.join(tmp, "memo.yaml"), MEMO_CONFIG))
+    cfg.train_ds_names = str(train_dir)
+    fcfg = FullNetConfig.from_cfg(cfg)
+    _, _, _, writer = create_logger(cfg, os.path.join(tmp, "experiments"))
+    robot = make_robot(fcfg, device=device)
+    loaders = get_dataloaders(cfg, device)
+    model = init_fullnet_state(fcfg, seeded_fullnet(fcfg)).to(device)
+    optimizer, scheduler = make_optimizer(fcfg, model.parameters(), 1)
+    train_step = build_full_train_step(fcfg, model, robot, optimizer,
+                                       scheduler)
+    eval_step = build_full_eval_step(fcfg, model, robot)
+    generator = torch.Generator(device=device).manual_seed(C.GLOBAL_SEED)
+    test = loaders["test"]["dr"]
+    evals = 0
+
+    def batch_stats_auc() -> float:
+        nonlocal evals
+        dis = defaultdict(list)
+        model.train()
+        with torch.no_grad(), batchnorm_statistics_on_copies(model):
+            for batch in prefetch_to_device(test, device, 0):
+                gts = prepare_gt(fcfg, robot, batch)
+                preds, _ = _forward(fcfg, model, robot, batch, gts)
+                evals += 1
+                m = compute_metrics_batch(
+                    robot=robot,
+                    gt_keypoints3d=host_numpy(gts["gt_keypoints3d"]),
+                    gt_keypoints2d=host_numpy(batch["keypoints_2d_original"]),
+                    K_original=host_numpy(batch["K_original"]),
+                    gt_joint=host_numpy(gts["gt_pose_before_mask"]),
+                    pred_keypoints3d=host_numpy(preds["xyz_fk"]),
+                    pred_joint=host_numpy(preds["pose"]),
+                    reference_keypoint_id=int(fcfg.reference_keypoint_id))
+                dis["dis3d"].extend(m["image_dis3d_avg"])
+                dis["dis2d"].extend(m["image_dis2d_avg"])
+        return summary_add_pck(dis)["ADD/AUC"]
+
+    def evaluate(epoch: int, when: str):
+        nonlocal evals
+        aucs[epoch] = validate_full(fcfg, robot, eval_step,
+                                    prefetch_to_device(test, device, 0),
+                                    writer, epoch, "dr")
+        evals += len(test)
+        aucs_bs[epoch] = batch_stats_auc()
+        print(f"phase 14 (a) {when}: ADD AUC running statistics "
+              f"{aucs[epoch]:.4f}, batch statistics {aucs_bs[epoch]:.4f} "
+              f"({time.perf_counter() - t0:.1f} s; {card})", flush=True)
+
+    aucs, aucs_bs, losses, steps = {}, {}, [], 0
+    try:
+        for epoch in range(MEMO_EPOCHS + 1):
+            if epoch % MEMO_EVAL_EVERY == 0 and epoch >= MEMO_EVAL_FROM:
+                evaluate(epoch, f"epoch {epoch}")
+                if aucs_bs[epoch] >= MEMO_STOP[0] and \
+                        aucs[epoch] >= MEMO_STOP[1]:
+                    break
+            for batch in prefetch_to_device(loaders["train"], device, 0):
+                logs = train_step(batch, generator)
+                steps += 1
+            losses.append(float(logs["loss"]))
+            if not math.isfinite(losses[-1]):
+                raise AssertionError(f"phase 14 (a): loss {losses[-1]} at "
+                                     f"epoch {epoch}")
+        else:
+            # as the JAX test: after the last epoch's step, under its key
+            evaluate(MEMO_EPOCHS, f"after epoch {MEMO_EPOCHS}'s step")
+    finally:
+        writer.close()
+        for loader in [loaders["train"], *loaders["test"].values()]:
+            loader.close()
+    return dict(aucs=aucs, aucs_batch_stats=aucs_bs, steps=steps,
+                eval_forwards=evals, loss_first=losses[0],
+                loss_last=losses[-1], wall_s=time.perf_counter() - t0)
+
+
+def _bn_buffers(model) -> dict:
+    """The BatchNorm running statistics and counters, on the host."""
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if is_bn_stat(k) or k.endswith("num_batches_tracked")}
+
+
+def _allclose_report(got: dict, want: dict, atol: float, rtol: float
+                     ) -> tuple:
+    """(the largest |got - want| / (atol + rtol |want|) over every entry,
+    its key); at most 1 is within the bound."""
+    worst, where = 0.0, None
+    for k, w in want.items():
+        g, w = got[k].double(), w.double()
+        diff = (g - w).abs()
+        if not bool(torch.isfinite(g).all() and torch.isfinite(w).all()):
+            return math.inf, k
+        r = float(torch.where(diff == 0, torch.zeros_like(diff),
+                              diff / (atol + rtol * w.abs())).max())
+        if r > worst:
+            worst, where = r, k
+    return worst, where
+
+
+def phase14_remat(cfg, sd, batch, device, card: str, counts) -> dict:
+    """cfg.remat at the flagship's width: for each dtype, one stage-2 step
+    with remat and one without from the same weights, batch and dropout
+    seed under `deterministic_convs`, held at the CPU test's tolerances
+    (losses, gradients, BatchNorm statistics and their counters); then
+    REMAT_TIMED_STEPS steps of each timed with the default TF32, their
+    peak memory, and the largest batch of REMAT_PROBE_BATCHES (on rows of
+    one 256-row batch) at which each steps without running out of
+    memory."""
+    from horopose_tpu_torch.data.synthetic import synthetic_dream_batch
+    from horopose_tpu_torch.pipelines.common import crop_sizes, make_robot
+    reset, read = counts
+    b = int(batch["TCO"].shape[0])
+    out, steps = {}, 0
+    reset()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        runs = {}
+        for remat in (False, True):
+            model, step = make_train_step(
+                dataclasses.replace(cfg, remat=remat), sd, device, dtype)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            with deterministic_convs():
+                logs = step(batch, gen)
+            steps += 1
+            run = dict(losses={k: v.detach().cpu() for k, v in logs.items()},
+                       grads=_grads(model), stats=_bn_buffers(model))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            times = []
+            for _ in range(REMAT_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(batch, gen)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                steps += 1
+            run.update(ms=1e3 * statistics.median(times),
+                       peak_gib=torch.cuda.max_memory_allocated(device)
+                       / 2 ** 30)
+            if dtype == torch.float32:     # where the recompute's time goes
+                prof = train_breakdown(
+                    lambda: step(batch, gen),
+                    f"{'remat' if remat else 'plain'} {name} b={b}",
+                    run["ms"], card)
+                run["busy_ms"] = sum(e.self_device_time_total
+                                     for e in device_events(prof)) / 1e3
+                steps += 1
+                del prof
+            runs[remat] = run
+            del model, step, logs
+        off, on = runs[False], runs[True]
+        loss_r = _allclose_report(on["losses"], off["losses"], 0.0,
+                                  REMAT_LOSS_RTOL)
+        grad_r = _allclose_report(on["grads"], off["grads"], REMAT_GRAD_ATOL,
+                                  REMAT_GRAD_RTOL)
+        stats = {k: v for k, v in off["stats"].items()
+                 if not k.endswith("num_batches_tracked")}
+        stat_r = _allclose_report(on["stats"], stats, REMAT_STAT_TOL,
+                                  REMAT_STAT_TOL)
+        tracked = {k for k in off["stats"]
+                   if k.endswith("num_batches_tracked")}
+        once = all(int(on["stats"][k]) == int(off["stats"][k]) == 1
+                   for k in tracked)
+        print(f"phase 14 (b) remat {name} b={b}, one step from the same "
+              f"state, deterministic convs, TF32 off: losses at "
+              f"{loss_r[0]:.3g} of the bound (rtol {REMAT_LOSS_RTOL}), "
+              f"gradients {grad_r[0]:.3g} of theirs (atol {REMAT_GRAD_ATOL}, "
+              f"rtol {REMAT_GRAD_RTOL}; worst {grad_r[1]}), BatchNorm "
+              f"statistics {stat_r[0]:.3g} of theirs ({REMAT_STAT_TOL}), "
+              f"{len(tracked)} counters each at 1: {once} ({card})",
+              flush=True)
+        if not (loss_r[0] <= 1 and grad_r[0] <= 1 and stat_r[0] <= 1
+                and once):
+            raise AssertionError(f"phase 14 (b): the {name} step with remat "
+                                 f"disagrees with the step without it")
+        print(f"phase 14 (b) remat {name} b={b}: step "
+              f"{on['ms']:.3f} ms with remat against {off['ms']:.3f} ms "
+              f"without ({on['ms'] / off['ms']:.3f}x), peak memory "
+              f"{on['peak_gib']:.2f} GiB against {off['peak_gib']:.2f} GiB "
+              f"(median of {REMAT_TIMED_STEPS}; TF32 as phase 5; {card})",
+              flush=True)
+        out[name] = {("remat" if k else "plain"): dict(
+            ms=r["ms"], peak_gib=r["peak_gib"], busy_ms=r.get("busy_ms"))
+            for k, r in runs.items()}
+        out[name]["agreement"] = dict(loss=loss_r[0], grads=grad_r[0],
+                                      stats=stat_r[0])
+        del runs, off, on
+    launches = read("remat training")
+    if not launches["soft_argmax_3d_fwd"] == launches[
+            "soft_argmax_3d_bwd"] == steps:
+        raise AssertionError(f"phase 14 (b): {steps} steps launched "
+                             f"{launches} (the heads are not recomputed)")
+    out["launches"] = launches
+    # the largest power-of-two batch that steps, on rows of one big batch
+    root_size, size = crop_sizes(cfg)
+    big = synthetic_dream_batch(make_robot(cfg, device=device),
+                                REMAT_PROBE_BATCHES[-1], size, root_size,
+                                SEED + 14, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for remat in (False, True):
+            model, step = make_train_step(
+                dataclasses.replace(cfg, remat=remat), sd, device, dtype)
+            fits, t0 = b, time.perf_counter()
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            for n in REMAT_PROBE_BATCHES:
+                oom = False
+                try:
+                    step(_rows(big, n), gen)
+                    torch.cuda.synchronize()
+                except torch.OutOfMemoryError:
+                    oom = True
+                if oom:
+                    break
+                fits = n
+            del model, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            key = "remat" if remat else "plain"
+            out[name][key]["max_batch"] = fits
+            print(f"phase 14 (b) {name} {key}: the largest batch of "
+                  f"{(b,) + REMAT_PROBE_BATCHES} that steps: {fits} "
+                  f"({time.perf_counter() - t0:.1f} s; {card})", flush=True)
+    del big
+    return out
+
+
+def phase14_crop(device, card: str, loader_img_s: float) -> dict:
+    """The native crop against data/crop.py over CROP_FRAMES random 480x640
+    frames and bboxes (inside the frame and partly outside it) to
+    CROP_SIZE^2, both on the host: at most one level apart on at most
+    CROP_MAX_OFF_BY_ONE of values; each one's time a frame; which library
+    decodes; phase 9's loader rate beside it."""
+    from horopose_tpu_torch import native
+    from horopose_tpu_torch.data.crop import crop_resize_bilinear
+    rng = np.random.RandomState(SEED + 140)
+    frames = rng.randint(0, 256, (CROP_FRAMES, 480, 640, 3), dtype=np.uint8)
+    boxes = []
+    for i in range(CROP_FRAMES):
+        w, h = rng.randint(40, 700), rng.randint(40, 520)
+        x0, y0 = rng.randint(-w // 2, 640 - w // 2), rng.randint(
+            -h // 2, 480 - h // 2)
+        boxes.append([x0, y0, x0 + w, y0 + h])
+    t0 = time.perf_counter()
+    ours = np.stack([native.crop_resize_bilinear(f, bb, CROP_SIZE)
+                     for f, bb in zip(frames, boxes)])
+    native_ms = 1e3 * (time.perf_counter() - t0) / CROP_FRAMES
+    t0 = time.perf_counter()
+    plain = np.stack([crop_resize_bilinear(
+        torch.from_numpy(f)[None], torch.tensor([bb]), CROP_SIZE)[0].numpy()
+        for f, bb in zip(frames, boxes)])
+    plain_ms = 1e3 * (time.perf_counter() - t0) / CROP_FRAMES
+    diff = np.abs(ours.astype(np.int16) - plain)
+    off = float((diff > 0).mean())
+    outside = sum(bb[0] < 0 or bb[1] < 0 or bb[2] > 640 or bb[3] > 480
+                  for bb in boxes)
+    decoder = native.decoder()
+    print(f"phase 14 (c) native crop vs data/crop.py, {CROP_FRAMES} frames "
+          f"480x640 -> {CROP_SIZE}^2 ({outside} bboxes partly outside): max "
+          f"{int(diff.max())} level(s), {off:.2e} of values off (<= "
+          f"{CROP_MAX_OFF_BY_ONE}); host ms a frame: native {native_ms:.3f}, "
+          f"data/crop.py {plain_ms:.3f}; JPEG decode by {decoder}; phase "
+          f"9's loader with the native crop {loader_img_s:.1f} img/s "
+          f"({card})", flush=True)
+    if diff.max() > 1 or off > CROP_MAX_OFF_BY_ONE:
+        raise AssertionError("phase 14 (c): the native crop disagrees with "
+                             "data/crop.py")
+    return dict(max_levels=int(diff.max()), off_share=off,
+                native_ms=native_ms, plain_ms=plain_ms, decoder=decoder,
+                loader_img_s=loader_img_s)
+
+
+def demo_child_main(workdir: str, args) -> int:
+    """Phase 14 (d)'s child (`chip_smoke.py --demo WORKDIR ARGS...`): the
+    demo with ARGS under `deterministic_convs` (its first steps, from the
+    JAX initialisers' zero root depth, are ill-conditioned: with cuDNN's
+    defaults the same seed's loss fell in one run and rose in the next),
+    then the soft-argmax wrappers' launches as one `demo launches {...}`
+    line."""
+    from horopose_tpu_torch.ops import integral_cuda
+    from horopose_tpu_torch.scripts import demo_learn
+    wrappers = {"soft_argmax_3d_fwd": integral_cuda.soft_argmax_3d_fwd,
+                "soft_argmax_3d_bwd": integral_cuda.soft_argmax_3d_bwd}
+    for fn in wrappers.values():
+        fn.launches = 0
+    with deterministic_convs():
+        demo_learn.main(["--workdir", workdir, *args])
+    print("demo launches " + json.dumps(
+        {k: fn.launches for k, fn in wrappers.items()}), flush=True)
+    return 0
+
+
+def phase14_demo(tmp: str, card: str) -> dict:
+    """`python -m horopose_tpu_torch.scripts.demo_learn` at DEMO_ARGS in a
+    child process at full width on the card: it exits 0, prints a
+    progression row for every epoch with a finite loss, the last epoch's
+    mean training loss below the first's, and the soft-argmax launches its
+    steps, validations and harness replay need."""
+    import re
+    workdir = os.path.join(tmp, "demo")
+    log = os.path.join(tmp, "demo.log")
+    t0 = time.perf_counter()
+    proc = start_child([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                        "--demo", workdir, *DEMO_ARGS], child_env(), log)
+    join_children([proc], [log], "phase 14 (d) demo", DEMO_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(log, errors="replace") as f:
+        text = f.read()
+    rows = {int(m.group(1)): m.group(2) for m in re.finditer(
+        r"^\s+epoch\s+(\d+): loss=(\S+)\s*(.*)$", text, re.M)}
+    lines = [m.group(0).strip() for m in re.finditer(
+        r"^\s+epoch\s+\d+: .*$", text, re.M)]
+    epochs = int(DEMO_ARGS[DEMO_ARGS.index("--epochs") + 1])
+    steps = epochs * (int(DEMO_ARGS[DEMO_ARGS.index("--n-train") + 1])
+                      // int(DEMO_ARGS[DEMO_ARGS.index("--batch-size") + 1]))
+    losses = [float(rows[e]) for e in sorted(rows)]
+    replayed = "[demo] result/summary.txt:" in text
+    launches = json.loads(text.rsplit("demo launches ", 1)[1].splitlines()[0])
+    n_val = epochs          # 32 test frames: one batch of 32 an epoch
+    want_fwd = steps + n_val + (1 + 2 * (FPS_ITERS + 1) if replayed else 0)
+    for line in lines:
+        print(f"phase 14 (d) {line}")
+    print(f"phase 14 (d) demo {' '.join(DEMO_ARGS)} at full width: "
+          f"{wall:.1f} s in its process, harness replayed: {replayed}, "
+          f"launches {launches} (want fwd {want_fwd}, bwd {steps}) "
+          f"({card})", flush=True)
+    if replayed:
+        summary = text.split("[demo] result/summary.txt:", 1)[1]
+        print("phase 14 (d) summary.txt: " + " | ".join(
+            line.strip() for line in summary.splitlines()[:12]
+            if line.strip()), flush=True)
+    elif "no best checkpoint was saved" not in text:
+        raise AssertionError("phase 14 (d): neither a summary nor the "
+                             "no-best-checkpoint line\n" + tail(log))
+    if sorted(rows) != list(range(epochs)):
+        raise AssertionError(f"phase 14 (d): progression rows for epochs "
+                             f"{sorted(rows)}\n" + tail(log))
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 14 (d): training losses {losses}")
+    if launches != dict(soft_argmax_3d_fwd=want_fwd,
+                        soft_argmax_3d_bwd=steps):
+        raise AssertionError(f"phase 14 (d): launches {launches}")
+    return dict(wall_s=wall, rows=lines, losses=losses, replayed=replayed,
+                launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
@@ -2782,8 +3239,14 @@ def main() -> int:
     # could use on this machine
     found = {m: importlib.util.find_spec(m) is not None
              for m in ("PIL", "yaml", "cv2", "msgpack")}
+    from horopose_tpu_torch import native
+    t0 = time.perf_counter()
+    decoder = native.decoder()
     print(f"machine: python {sys.version.split()[0]}, modules {found}, "
-          f"{JPEG_HEADER} {os.path.exists(JPEG_HEADER)}", flush=True)
+          f"{JPEG_HEADER} {os.path.exists(JPEG_HEADER)}; the native crop "
+          f"built with g++ into {native.build()} "
+          f"({time.perf_counter() - t0:.1f} s), JPEG decode by {decoder}",
+          flush=True)
 
     # each phase's wall time, host clock
     laps = [time.perf_counter()]
@@ -3093,6 +3556,53 @@ def main() -> int:
 
     lap("13")
 
+    # ---- 14. the learning demo's slice: the memorization regression,
+    # cfg.remat at full width, the native crop, the demo ----
+    t14 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp14:
+        memo_dir = os.path.join(tmp14, "memo")
+        os.makedirs(memo_dir)
+        reset_counts()
+        # float32 as the JAX test's CPU run: TF32 off, and cuDNN's
+        # deterministic algorithms, without which the same seed gives
+        # another trajectory each run (PERF.md §6)
+        with deterministic_convs():
+            memo = memorization_run(memo_dir, device, card)
+        counts = read_counts("memorization regression")
+        want = dict(soft_argmax_3d_fwd=memo["steps"] + memo["eval_forwards"],
+                    soft_argmax_3d_bwd=memo["steps"])
+        best, best_bs = max(memo["aucs"].values()), max(
+            memo["aucs_batch_stats"].values())
+        print(f"phase 14 (a) memorization regression: {memo['steps']} steps "
+              f"in {memo['wall_s']:.1f} s, loss {memo['loss_first']:.4f} -> "
+              f"{memo['loss_last']:.4f}; best ADD AUC with batch statistics "
+              f"{best_bs:.4f} (>= {MEMO_BATCH_STATS_AUC}), with running "
+              f"statistics {best:.4f} (>= {MEMO_RUNNING_AUC}) ({card})",
+              flush=True)
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"phase 14 (a): launches {counts}, want "
+                                 f"{want}")
+        if best_bs < MEMO_BATCH_STATS_AUC or best < MEMO_RUNNING_AUC:
+            raise AssertionError(f"phase 14 (a): ADD AUC {memo['aucs']} "
+                                 f"(running), {memo['aucs_batch_stats']} "
+                                 f"(batch statistics)")
+        lap("14 (a)")
+        remat = phase14_remat(cfg, train_sd, batch, device, card,
+                              (reset_counts, read_counts))
+        lap("14 (b)")
+        crop = phase14_crop(device, card, loader_alone["img_s"])
+        lap("14 (c)")
+        demo = phase14_demo(tmp14, card)
+        path_launches["demo_learn (its process)"] = dict(
+            demo["launches"], conv3x3_nhwc=0)
+        lap("14 (d)")
+    collect_garbage("after phase 14", card)
+    phase14 = dict(memorization=memo, remat=remat, native_crop=crop,
+                   demo=demo, wall_s=time.perf_counter() - t14)
+    print(f"phase 14 took {phase14['wall_s']:.1f} s ({card})", flush=True)
+
+    lap("14")
+
     # ---- 6. float32 comparisons, TF32 off everywhere ----
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3160,7 +3670,7 @@ def main() -> int:
                     stage3=stage3, variants=variants,
                     harness_with_plots=plots,
                     loader_close_s=loader_close_s, weights_and_export=phase12,
-                    data_parallel=phase13),
+                    data_parallel=phase13, learning_slice=phase14),
         kernel_line("soft_argmax_3d_bwd", sam_src,
                     "horopose_tpu/ops/integral_pallas.py:56", bwd_rows,
                     bwd_launches, [b_train, *cell], dx_tol),
@@ -3185,4 +3695,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_rank_main(sys.argv[2]))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--demo":
+        sys.exit(demo_child_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -15,10 +15,12 @@ subset of YAML 1.1 that `configs/` uses, with PyYAML's rules for it:
 
 Anything else (nested mappings, anchors, multi-line strings, octal or
 sexagesimal numbers) is outside the subset and raises or stays a string.
-Keys only the TPU uses (`remat`, ...) are read and ignored by the port. `mesh_shape` must cover every rank of a
-data-parallel run (`parallel/mesh.py::train_mesh`; the port runs one
-process per card) and divide the test harness's batch; `compute_dtype`
-picks the training dtype of `python -m horopose_tpu_torch.scripts.train`.
+`remat` recomputes each backbone unit in the backward, as in the JAX
+package (`models/common.py::remat_call`). `mesh_shape` must cover every
+rank of a data-parallel run (`parallel/mesh.py::train_mesh`; the port
+runs one process per card) and divide the test harness's batch;
+`compute_dtype` picks the training dtype of `python -m
+horopose_tpu_torch.scripts.train`.
 """
 
 from __future__ import annotations
@@ -268,11 +270,10 @@ def make_default_cfg() -> AttrDict:
     cfg.resume_run = False
     cfg.resume_experiment_name = "resume_name"
 
-    # the JAX package's TPU extensions: read, ignored by the port (but
-    # compute_dtype, decode_cache, decode_cache_dir and prefetch_batches)
+    # the JAX package's extensions, each honoured by the port
     cfg.mesh_shape = None
     cfg.compute_dtype = "float32"
-    cfg.remat = False
+    cfg.remat = False     # backbone units recomputed in the backward
     cfg.debug_nans = False
     cfg.profile_dir = None
     cfg.decode_cache = False

@@ -14,11 +14,13 @@ does:
     and crop-validity masks,
   - the color-jitter / occlusion / Pillow augmentation stack.
 
-Host side only: the frame is decoded with PIL (the JAX package's native
-libjpeg decode is byte-identical to it) and the square crops are cut by
-`data/crop.py::crop_resize_bilinear` on a CPU tensor of the one frame
-(the twin of the JAX package's native C++ crop). Samples are dicts of
-numpy arrays; `data.samplers.collate` stacks them into CPU tensors.
+Host side only: the frame is decoded by the system libjpeg through
+`native/` where it was built with it, else by PIL (the two are
+byte-identical), and the square crops are cut by the native C++ crop
+(`native.crop_resize_bilinear`, byte-identical to the JAX package's).
+The constructor builds and loads the native library, so a loader builds
+it once, before it forks its workers. Samples are dicts of numpy arrays;
+`data.samplers.collate` stacks them into CPU tensors.
 
 Random draws: `get(idx, rng, np_rng)` takes its generators;
 `dataset[(seed, epoch, idx)]` seeds them from the three numbers
@@ -36,17 +38,16 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 import numpy as np
-import torch
 from PIL import Image
 
 from horopose_tpu_torch import constants as C
+from horopose_tpu_torch import native
 from horopose_tpu_torch.data import roboutils as RU
 from horopose_tpu_torch.data.augmentations import (apply_color_jitter,
                                                    apply_occlusion,
                                                    apply_pillow_augs,
                                                    crop_resize_to_aspect,
                                                    flip_image_and_annotations)
-from horopose_tpu_torch.data.crop import crop_resize_bilinear
 
 # ids with corrupt annotations in the public kuka train set
 KUKA_SYNT_TRAIN_DR_INCORRECT_IDS = {83114, 28630}
@@ -100,7 +101,11 @@ def sample_generators(seed: int, epoch: int, idx: int
 
 
 def decode_rgb(path) -> np.ndarray:
-    """A jpg decoded to (H, W, 3) uint8 RGB."""
+    """A jpg decoded to (H, W, 3) uint8 RGB: by the native libjpeg decode
+    where it is built, else (or for a file it does not take) by PIL."""
+    rgb = native.decode_jpeg(path)
+    if rgb is not None:
+        return rgb
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
 
@@ -140,6 +145,7 @@ class DreamDataset:
         self.return_original_image = return_original_image
 
         self.frame_index = build_frame_index(self.base_dir)
+        native.load()    # built here, before a loader forks its workers
         # decoded-jpg memmap cache (data/cache.py): epoch 1 fills it, later
         # epochs skip the decode. None = off (the default).
         self.decode_cache = None
@@ -191,11 +197,8 @@ class DreamDataset:
         """Square-pad crop -> resize -> K update -> reprojected keypoints."""
         if resize_hw[0] == resize_hw[1]:
             # one pass from source pixels to the crop (align_corners=False
-            # bilinear, the twin of the JAX package's native crop)
-            crop = crop_resize_bilinear(
-                torch.from_numpy(rgb)[None],
-                torch.as_tensor(np.asarray(bbox, np.int64))[None],
-                resize_hw[0])[0].numpy()
+            # bilinear, native/dream_ops.cpp)
+            crop = native.crop_resize_bilinear(rgb, bbox, resize_hw[0])
             wmin, hmin, wmax, hmax = [int(v) for v in bbox]
             sq = int(max(wmax - wmin, hmax - hmin))
             x_off = int((sq - (wmax - wmin)) // 2)
@@ -368,9 +371,6 @@ class DreamDataset:
         if self.rgb_augmentation:
             rgb = apply_pillow_augs(rgb, rng)
 
-        # a C-contiguous, writeable frame, which torch.from_numpy takes
-        # without a copy or a warning
-        rgb = np.require(rgb, np.uint8, ("C", "W"))
         root = self._make_crop(rgb, bbox, K_work, keypoints_3d,
                                bbox_strict_bounded, self.rootnet_resize_hw,
                                rng, flip=self.flip)

@@ -26,6 +26,15 @@ The variants, as in the JAX model:
   instead of adding 6-D vectors;
 - `rotation_dim` 4: quaternion rotations (`init_rot` (1, 0, 0, 0)).
 
+A fresh model draws its weights as the JAX model's initialisers do:
+flax's defaults (`models/common.py::init_like_flax_`), `depth_layer` from
+normal(0, 0.001), the resnet path's `final_layer` from normal(0,
+sqrt(2 / (K * D))), `decpose` and `decrot` Glorot-uniform, biases 0.
+
+`remat` recomputes each backbone unit's forward in the backward (both
+backbones; `models/common.py::remat_call`), the JAX model's `remat`: the
+state dict and the results are the same, the activation memory less.
+
 dtype bfloat16 runs the conv stacks under autocast; `depth_layer`, the fc
 bottleneck, the decoding and the MLP heads stay float32, as the JAX
 model's Dense layers do.
@@ -45,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horopose_tpu_torch.models.common import init_like_flax_
 from horopose_tpu_torch.models.hrnet import get_hrnet
 from horopose_tpu_torch.models.resnet import batch_norm, get_resnet
 from horopose_tpu_torch.ops.integral import (heatmap_integral_joint,
@@ -81,6 +91,7 @@ class FullNet(nn.Module):
                  init_pose: Sequence[float] = (),
                  init_rot: Sequence[float] = (1, 0, 0, 0, 1, 0),
                  use_kernel: Optional[bool] = None,
+                 remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
@@ -124,12 +135,13 @@ class FullNet(nn.Module):
 
         # ---- root depth branch ----
         if rootnet_backbone_name in _RESNETS:
-            self.rootnet_backbone = get_resnet(rootnet_backbone_name)
+            self.rootnet_backbone = get_resnet(rootnet_backbone_name,
+                                               remat=remat)
             root_feat = self.rootnet_backbone.feature_channels
         elif rootnet_backbone_name in _HRNETS:
             self.rootnet_backbone = get_hrnet(
                 _hrnet_width(rootnet_backbone_name), num_keypoints, depth_dim,
-                generate_hm=False, generate_feat=True)
+                generate_hm=False, generate_feat=True, remat=remat)
             root_feat = 2048
         else:
             raise NotImplementedError(rootnet_backbone_name)
@@ -153,7 +165,7 @@ class FullNet(nn.Module):
 
         # ---- keypoint (integral) branch ----
         if backbone_name in _RESNETS:
-            self.reg_backbone = get_resnet(backbone_name)
+            self.reg_backbone = get_resnet(backbone_name, remat=remat)
             reg_feat = self.reg_backbone.feature_channels
             layers, cin = [], reg_feat
             for _ in range(3):
@@ -165,7 +177,7 @@ class FullNet(nn.Module):
         elif backbone_name in _HRNETS:
             self.reg_backbone = get_hrnet(
                 _hrnet_width(backbone_name), num_keypoints, depth_dim,
-                generate_hm=True, generate_feat=True)
+                generate_hm=True, generate_feat=True, remat=remat)
             reg_feat = 2048
         else:
             raise NotImplementedError(backbone_name)
@@ -205,6 +217,16 @@ class FullNet(nn.Module):
             self.fc_rot_2 = nn.Linear(1024, 1024)
         self.decrot = nn.Linear(1024, rotation_dim)
         self.p_dropout = float(p_dropout)
+
+        # the JAX model's initialisers: flax's defaults, then its heads'
+        init_like_flax_(self)
+        nn.init.normal_(self.depth_layer.weight, std=0.001)
+        if self.reg_is_resnet:
+            nn.init.normal_(self.final_layer.weight,
+                            std=(2.0 / (num_keypoints * depth_dim)) ** 0.5)
+        nn.init.xavier_uniform_(self.decrot.weight)
+        if not reg_joint_map:
+            nn.init.xavier_uniform_(self.decpose.weight)
 
     def _autocast(self, x: torch.Tensor):
         return torch.autocast(x.device.type, dtype=torch.bfloat16,

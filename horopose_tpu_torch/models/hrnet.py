@@ -6,7 +6,9 @@ multi-branch stages with SUM fuse layers, an optional heatmap head
 optional classification head giving a 2048-d feature. Module names are the
 reference checkpoints' keys (`transition1.0.0`, `stage2.0.branches.0.0`,
 `stage2.0.fuse_layers.i.j.k.0`, `incre_modules.i.0`, `downsamp_modules.i.0`,
-`final_feat_layer.0/1`).
+`final_feat_layer.0/1`). With `remat`, the layer1 and head Bottlenecks
+and every HighResolutionModule are recomputed in the backward, the units
+the JAX package's `nn.remat` wraps; the stem and the transitions are not.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
+from horopose_tpu_torch.models.common import remat_call
 from horopose_tpu_torch.models.resnet import (BasicBlock, Bottleneck,
                                               batch_norm, conv3x3)
 
@@ -29,8 +32,10 @@ def _conv_bn(cin: int, cout: int, stride: int, relu: bool) -> nn.Sequential:
 
 class HighResolutionModule(nn.Module):
     def __init__(self, num_branches: int, num_blocks: int,
-                 channels: Sequence[int], multi_scale_output: bool = True):
+                 channels: Sequence[int], multi_scale_output: bool = True,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.num_branches = num_branches
         self.branches = nn.ModuleList(
             nn.Sequential(*[BasicBlock(channels[b], channels[b])
@@ -61,6 +66,9 @@ class HighResolutionModule(nn.Module):
         self.relu = nn.ReLU(inplace=True)
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        return remat_call(self, self._forward, xs)
+
+    def _forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         ys = [self.branches[b](xs[b]) for b in range(self.num_branches)]
         outs = []
         for row in self.fuse_layers:
@@ -94,7 +102,7 @@ class HRNet(nn.Module):
 
     def __init__(self, width: int = 32, num_joints: int = 7,
                  depth_dim: int = 64, generate_hm: bool = True,
-                 generate_feat: bool = True):
+                 generate_feat: bool = True, remat: bool = False):
         super().__init__()
         w = width
         self.generate_hm = generate_hm
@@ -104,24 +112,27 @@ class HRNet(nn.Module):
         self.conv2 = nn.Conv2d(64, 64, 3, 2, 1, bias=False)
         self.bn2 = batch_norm(64)
         self.relu = nn.ReLU(inplace=True)
-        self.layer1 = nn.Sequential(*[Bottleneck(64 if i == 0 else 256, 64)
-                                      for i in range(4)])
+        self.layer1 = nn.Sequential(*[
+            Bottleneck(64 if i == 0 else 256, 64, remat=remat)
+            for i in range(4)])
         c2, c3, c4 = [w, 2 * w], [w, 2 * w, 4 * w], [w, 2 * w, 4 * w, 8 * w]
         self.transition1 = _transition([256], c2)
-        self.stage2 = nn.Sequential(HighResolutionModule(2, 4, c2))
+        self.stage2 = nn.Sequential(HighResolutionModule(2, 4, c2,
+                                                         remat=remat))
         self.transition2 = _transition(c2, c3)
-        self.stage3 = nn.Sequential(*[HighResolutionModule(3, 4, c3)
-                                      for _ in range(4)])
+        self.stage3 = nn.Sequential(*[
+            HighResolutionModule(3, 4, c3, remat=remat) for _ in range(4)])
         self.transition3 = _transition(c3, c4)
         self.stage4 = nn.Sequential(*[
             HighResolutionModule(4, 4, c4, multi_scale_output=(
-                generate_feat or m != 2)) for m in range(3)])
+                generate_feat or m != 2), remat=remat) for m in range(3)])
         if generate_hm:
             self.final_layer = nn.Conv2d(w, num_joints * depth_dim, 1)
         if generate_feat:
             head = [32, 64, 128, 256]
             self.incre_modules = nn.ModuleList(
-                nn.Sequential(Bottleneck(c4[i], head[i])) for i in range(4))
+                nn.Sequential(Bottleneck(c4[i], head[i], remat=remat))
+                for i in range(4))
             self.downsamp_modules = nn.ModuleList(
                 nn.Sequential(nn.Conv2d(head[i] * 4, head[i + 1] * 4, 3, 2, 1),
                               batch_norm(head[i + 1] * 4),
@@ -172,6 +183,8 @@ class HRNet(nn.Module):
 
 
 def get_hrnet(width: int = 32, num_joints: int = 7, depth_dim: int = 64,
-              generate_hm: bool = True, generate_feat: bool = True) -> HRNet:
+              generate_hm: bool = True, generate_feat: bool = True,
+              remat: bool = False) -> HRNet:
     return HRNet(width=width, num_joints=num_joints, depth_dim=depth_dim,
-                 generate_hm=generate_hm, generate_feat=generate_feat)
+                 generate_hm=generate_hm, generate_feat=generate_feat,
+                 remat=remat)

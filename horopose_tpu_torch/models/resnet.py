@@ -4,12 +4,16 @@ Port of `horopose_tpu/models/resnet.py`: ResNet-18/34/50/101/152 without
 the avgpool/fc head, output stride 32, returning the final feature map.
 Module names follow torchvision (`conv1`, `bn1`, `layer{s}.{i}.conv1`,
 `downsample.0/1`), which are the reference checkpoints' keys.
-BatchNorm: eps 1e-5, momentum 0.1 (flax momentum 0.9).
+BatchNorm: eps 1e-5, momentum 0.1 (flax momentum 0.9). With `remat`, each
+block's forward is recomputed in the backward (`models/common.py::
+remat_call`, the JAX package's `cfg.remat`); the state dict is the same.
 """
 
 from __future__ import annotations
 
 from torch import nn
+
+from horopose_tpu_torch.models.common import remat_call
 
 RESNET_SPECS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -40,8 +44,10 @@ def _downsample(cin: int, cout: int, stride: int):
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int = 1):
+    def __init__(self, cin: int, filters: int, stride: int = 1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = conv3x3(cin, filters, stride)
         self.bn1 = batch_norm(filters)
         self.conv2 = conv3x3(filters, filters)
@@ -50,6 +56,9 @@ class BasicBlock(nn.Module):
         self.downsample = _downsample(cin, filters, stride)
 
     def forward(self, x):
+        return remat_call(self, self._forward, x)
+
+    def _forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
         y = self.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
@@ -59,8 +68,10 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, stride: int = 1):
+    def __init__(self, cin: int, filters: int, stride: int = 1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = nn.Conv2d(cin, filters, 1, bias=False)
         self.bn1 = batch_norm(filters)
         self.conv2 = conv3x3(filters, filters, stride)
@@ -71,6 +82,9 @@ class Bottleneck(nn.Module):
         self.downsample = _downsample(cin, filters * 4, stride)
 
     def forward(self, x):
+        return remat_call(self, self._forward, x)
+
+    def _forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
         y = self.relu(self.bn1(self.conv1(x)))
         y = self.relu(self.bn2(self.conv2(y)))
@@ -82,7 +96,7 @@ class ResNet(nn.Module):
     """Trunk only: input (B, 3, H, W) -> feature map (B, C, H/32, W/32)."""
 
     def __init__(self, block: str = "bottleneck",
-                 stage_sizes=(3, 4, 6, 3)):
+                 stage_sizes=(3, 4, 6, 3), remat: bool = False):
         super().__init__()
         block_cls = Bottleneck if block == "bottleneck" else BasicBlock
         self.feature_channels = 512 * block_cls.expansion
@@ -95,7 +109,8 @@ class ResNet(nn.Module):
             blocks = []
             for i in range(num_blocks):
                 stride = 2 if stage > 0 and i == 0 else 1
-                blocks.append(block_cls(cin, 64 * 2 ** stage, stride))
+                blocks.append(block_cls(cin, 64 * 2 ** stage, stride,
+                                        remat=remat))
                 cin = 64 * 2 ** stage * block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -107,6 +122,6 @@ class ResNet(nn.Module):
         return x
 
 
-def get_resnet(arch: str) -> ResNet:
+def get_resnet(arch: str, remat: bool = False) -> ResNet:
     block, sizes = RESNET_SPECS[arch]
-    return ResNet(block=block, stage_sizes=sizes)
+    return ResNet(block=block, stage_sizes=sizes, remat=remat)

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from horopose_tpu_torch import constants as C
+from horopose_tpu_torch import native
 from horopose_tpu_torch.config import resolve_urdf_path
 from horopose_tpu_torch.data.dream import DreamDataset
 from horopose_tpu_torch.data.samplers import (DataLoader, ListSampler,
@@ -72,6 +73,9 @@ class FullNetConfig:
     add_fc: bool = False
     multi_kp: bool = False
     kps_need_depth: Optional[Sequence[int]] = None
+    # recompute each backbone unit in the backward (models/common.py::
+    # remat_call): less activation memory for more forward work
+    remat: bool = False
 
     # ---- stage-2 training ----
     batch_size: int = 64
@@ -175,7 +179,7 @@ def build_fullnet(cfg: FullNetConfig,
         or (256, 256, 256),
         joint_bounds=C.JOINT_BOUNDS[robot_type] if cfg.reg_joint_map
         else None,
-        add_fc=cfg.add_fc, multi_kp=cfg.multi_kp,
+        add_fc=cfg.add_fc, multi_kp=cfg.multi_kp, remat=cfg.remat,
         kps_need_depth=tuple(int(k) for k in cfg.kps_need_depth)
         if cfg.kps_need_depth else None,
         init_pose=tuple(C.initial_joint_vector("mean", robot_type).tolist()),
@@ -361,6 +365,8 @@ def get_dataloaders(cfg, device="cuda") -> Dict:
         raise FileNotFoundError(
             f"no DREAM samples (*.jpg + *.json) found under {train_path!r}; "
             "set HOROPOSE_DATA_DIR or fix train_ds_names in the config")
+    print(f"[data] {train_path}: {len(ds_train)} frames; JPEG decode by "
+          f"{native.decoder()}, crops by the native C++ crop", flush=True)
     sampler = PartialSampler(ds_train, cfg.epoch_size)
     n_proc = process_count()
     batch_size = local_batch_size(int(cfg.batch_size))

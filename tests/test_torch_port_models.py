@@ -250,3 +250,40 @@ def test_dropout_masks_keep_one_minus_p_and_rescale():
     kept = y != 0
     assert abs(float(kept.float().mean()) - 0.7) < 0.01
     torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / 0.7))
+
+
+def _init_jax(jmodel, args):
+    return jax.jit(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        *args, train=False))()
+
+
+def test_fresh_fullnet_follows_the_jax_initializers():
+    """A fresh port FullNet draws each tensor as the JAX model's init does
+    (flax's lecun-normal kernels, zero biases, the heads' own
+    initialisers): the same zeros and ones, and each other tensor of 64+
+    entries at the JAX tensor's spread (std within 15%, or 30% under
+    1000 entries; torch's defaults are at 58% with non-zero biases)."""
+    torch.manual_seed(0)
+    kw = dict(backbone_name="resnet18", rootnet_backbone_name="resnet18",
+              image_size=32, depth_dim=8, init_pose=INIT_POSE)
+    v = _init_jax(JaxFullNet(**kw), _inputs(np.random.RandomState(0), 2, 32))
+    ref = fullnet_state_dict_from_jax(v["params"], v["batch_stats"],
+                                      "resnet18", "resnet18")
+    ours = FullNet(**kw).state_dict()
+    assert sorted(ref) == sorted(
+        k for k in ours if not k.endswith("num_batches_tracked"))
+    spread = 0
+    for key, want in ref.items():
+        got, want = ours[key].double(), want.double()
+        for const in (0.0, 1.0):
+            if bool((want == const).all()):
+                assert bool((got == const).all()), (key, const)
+                break
+        else:
+            if want.numel() >= 64:
+                ratio = float(got.std() / want.std())
+                tol = 0.15 if want.numel() >= 1000 else 0.30
+                assert abs(ratio - 1.0) <= tol, (key, ratio)
+                spread += 1
+    assert spread > 20

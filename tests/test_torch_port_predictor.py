@@ -218,7 +218,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'horopose_tpu_torch.core.shaded_render', "
         "'horopose_tpu_torch.tools.torch_weights', "
         "'horopose_tpu_torch.tools.convert', "
-        "'horopose_tpu_torch.tools.export'} <= set(names), "
+        "'horopose_tpu_torch.tools.export', "
+        "'horopose_tpu_torch.native', "
+        "'horopose_tpu_torch.scripts.demo_learn'} <= set(names), "
         "names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
