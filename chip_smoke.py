@@ -211,8 +211,9 @@ cuDNN's default TF32 for float32, as phases 4 and 5 do (phases 11-13
 turn it off for their comparisons), and phase 8's b=2 comparison runs
 with phase 6's. Each phase prints its wall time. Phases 9 and 10 close their
 loaders and print each close()'s time. Each path's kernel launch counts
-are set to 0 just before it and read just after it; launches made to
-compare a kernel with its plain version are not counted.
+are read just before it and just after it (the counters
+`<wrapper>.launches` of `core/profiling.py`); launches made to compare a
+kernel with its plain version are not counted.
 
 It exits non-zero with no result when no CUDA device is present.
 """
@@ -2422,6 +2423,20 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
+SOFT_ARGMAX = ("soft_argmax_3d_fwd", "soft_argmax_3d_bwd")
+KERNELS = SOFT_ARGMAX + ("soft_argmax_3d_partials", "soft_argmax_3d_merge",
+                         "conv3x3_nhwc")
+
+
+def launches(names=KERNELS, since=None) -> dict:
+    """Each hand kernel's launches in this process (the counters
+    `<wrapper>.launches` of `core/profiling.py`), less those in `since`,
+    an earlier reading."""
+    from horopose_tpu_torch.core.profiling import counters
+    since = since or {}
+    return {n: counters[f"{n}.launches"] - since.get(n, 0) for n in names}
+
+
 def allreduce_ms(params, device, reps: int = 5) -> dict:
     """Median ms, host clock, synchronised, of the step's gradient mean
     (`average_gradients`) on the current gradients (`whole`), and of two
@@ -2598,7 +2613,6 @@ def dp_rank_main(tmp: str) -> int:
     from horopose_tpu_torch.core.engine import (build_full_train_step,
                                                 make_optimizer)
     from horopose_tpu_torch.models.common import convert_sync_batchnorm
-    from horopose_tpu_torch.ops import integral_cuda
     from horopose_tpu_torch.parallel import (maybe_initialize,
                                              process_count, process_index,
                                              replicate, train_mesh)
@@ -2616,8 +2630,6 @@ def dp_rank_main(tmp: str) -> int:
         b = int(spec["batch"]["TCO"].shape[0]) // n
         local = _batch_to({k: _slice_rows(v, rank * b, b)
                            for k, v in spec["batch"].items()}, device)
-        wrappers = (integral_cuda.soft_argmax_3d_fwd,
-                    integral_cuda.soft_argmax_3d_bwd)
         with tf32_off():
             model = build_fullnet(cfg)
             model.load_state_dict(spec["sd"])
@@ -2627,24 +2639,25 @@ def dp_rank_main(tmp: str) -> int:
             step = build_full_train_step(cfg, model,
                                          make_robot(cfg, device=device),
                                          opt, sched)
-            logs, step_ms, launches, samples = [], [], [], []
+            logs, step_ms, step_launches, samples = [], [], [], []
             for _ in range(DP_STEPS):
-                before = [w.launches for w in wrappers]
+                before = launches(SOFT_ARGMAX)
                 sync(device)
                 t0 = time.perf_counter()
                 logs.append({k: float(v) for k, v in
                              step(local, None).items()})
                 sync(device)
                 step_ms.append(1e3 * (time.perf_counter() - t0))
-                launches.append([w.launches - c for w, c in
-                                 zip(wrappers, before)])
+                step_launches.append(list(
+                    launches(SOFT_ARGMAX, before).values()))
                 samples.append(weight_sample(model))
             params = [p for p in model.parameters() if p.requires_grad]
             ar_ms = allreduce_ms(params, device)
             del opt, sched, step, params, model
-            before = wrappers[0].launches
+            before = launches(SOFT_ARGMAX)
             val = phase13_validate(cfg, spec["sd"], spec["config"], device)
-            val["launches"] = wrappers[0].launches - before
+            val["launches"] = launches(SOFT_ARGMAX,
+                                       before)["soft_argmax_3d_fwd"]
         refusals = {}
         mesh_cfg = make_cfg(spec["config"])
         mesh_cfg.mesh_shape = [1]
@@ -2653,15 +2666,13 @@ def dp_rank_main(tmp: str) -> int:
         except ValueError as e:
             refusals["mesh"] = str(e)
         dist.barrier()
-        from horopose_tpu_torch.ops import conv3x3_cuda
         # this process's path: the steps and the validation
-        totals = {fn.__name__: fn.launches for fn in
-                  (*wrappers, conv3x3_cuda.conv3x3_nhwc)}
+        totals = launches(SOFT_ARGMAX + ("conv3x3_nhwc",))
         out = dict(rank=rank, count=n, backend=dist.get_backend(),
                    device=str(device), logs=logs, step_ms=step_ms,
-                   totals=totals,
-                   launches=launches, allreduce_ms=ar_ms, samples=samples,
-                   val=val, refusals=refusals)
+                   totals=totals, launches=step_launches,
+                   allreduce_ms=ar_ms, samples=samples, val=val,
+                   refusals=refusals)
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(tmp, f"dp_rank{rank}.pt"))
@@ -2846,14 +2857,11 @@ def sim2real_dp_run(config: str, overrides: dict, exp_root: str, device,
     batch (the weights are what the twin is for)."""
     from horopose_tpu_torch.config import make_cfg
     from horopose_tpu_torch.data.samplers import DataLoader, ListSampler
-    from horopose_tpu_torch.ops import integral_cuda
     from horopose_tpu_torch.pipelines import train_sim2real as S
     from horopose_tpu_torch.pipelines.common import get_dataloaders
     cfg = make_cfg(config)
     for k, v in overrides.items():
         setattr(cfg, k, v)
-    wrappers = (integral_cuda.soft_argmax_3d_fwd,
-                integral_cuda.soft_argmax_3d_bwd)
     build, validate = S.build_sim2real_train_step, S.validate_full
     pick = S._worst_view_ids
     steps, vals, views = [], [], []
@@ -2862,7 +2870,7 @@ def sim2real_dp_run(config: str, overrides: dict, exp_root: str, device,
         step = build(*args, **kwargs)
 
         def run(batch, generator):
-            before = [w.launches for w in wrappers]
+            before = launches(SOFT_ARGMAX)
             sync(device)
             t0 = time.perf_counter()
             logs = step(batch, generator)
@@ -2870,8 +2878,8 @@ def sim2real_dp_run(config: str, overrides: dict, exp_root: str, device,
             steps.append(dict(ms=1e3 * (time.perf_counter() - t0),
                               ids=batch["image_id"].tolist(),
                               logs={k: float(v) for k, v in logs.items()},
-                              launches=[w.launches - b for w, b in
-                                        zip(wrappers, before)]))
+                              launches=list(launches(SOFT_ARGMAX,
+                                                     before).values())))
             return logs
         return run
 
@@ -2921,7 +2929,6 @@ def s2r_rank_main(tmp: str) -> int:
     its own experiment root; saves what it measured, and its process's
     launch counts, to TMP/s2r_rank<r>.pt."""
     import torch.distributed as dist
-    from horopose_tpu_torch.ops import conv3x3_cuda, integral_cuda
     from horopose_tpu_torch.parallel import (maybe_initialize,
                                              process_count, process_index)
     from horopose_tpu_torch.parallel.multihost import rank_device
@@ -2938,10 +2945,7 @@ def s2r_rank_main(tmp: str) -> int:
         dist.barrier()
         run.update(rank=rank, count=process_count(), device=str(device),
                    backend=dist.get_backend(),
-                   totals={fn.__name__: fn.launches for fn in (
-                       integral_cuda.soft_argmax_3d_fwd,
-                       integral_cuda.soft_argmax_3d_bwd,
-                       conv3x3_cuda.conv3x3_nhwc)})
+                   totals=launches(SOFT_ARGMAX + ("conv3x3_nhwc",)))
     finally:
         dist.destroy_process_group()
     torch.save(run, os.path.join(tmp, f"s2r_rank{rank}.pt"))
@@ -3425,16 +3429,12 @@ def demo_child_main(workdir: str, args) -> int:
     defaults the same seed's loss fell in one run and rose in the next),
     then the soft-argmax wrappers' launches as one `demo launches {...}`
     line."""
-    from horopose_tpu_torch.ops import integral_cuda
     from horopose_tpu_torch.scripts import demo_learn
-    wrappers = {"soft_argmax_3d_fwd": integral_cuda.soft_argmax_3d_fwd,
-                "soft_argmax_3d_bwd": integral_cuda.soft_argmax_3d_bwd}
-    for fn in wrappers.values():
-        fn.launches = 0
+    before = launches(SOFT_ARGMAX)
     with deterministic_convs():
         demo_learn.main(["--workdir", workdir, *args])
-    print("demo launches " + json.dumps(
-        {k: fn.launches for k, fn in wrappers.items()}), flush=True)
+    print("demo launches " + json.dumps(launches(SOFT_ARGMAX, before)),
+          flush=True)
     return 0
 
 
@@ -3943,23 +3943,15 @@ def main() -> int:
               f"{now - laps[0]:.1f} s)", flush=True)
         laps.append(now)
 
-    # every wrapper's launch count, set to 0 just before a path and read
-    # just after it
-    wrappers = {"soft_argmax_3d_fwd": integral_cuda.soft_argmax_3d_fwd,
-                "soft_argmax_3d_bwd": integral_cuda.soft_argmax_3d_bwd,
-                "soft_argmax_3d_partials":
-                    integral_cuda.soft_argmax_3d_partials,
-                "soft_argmax_3d_merge": integral_cuda.soft_argmax_3d_merge,
-                "conv3x3_nhwc": conv3x3_cuda.conv3x3_nhwc}
-    path_launches = {}
+    # every kernel's launches over a path: the counters read just before
+    # it and just after it
+    path_launches, since = {}, {}
 
     def reset_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
+        since.update(launches())
 
     def read_counts(path: str) -> dict:
-        path_launches[path] = {name: fn.launches
-                               for name, fn in wrappers.items()}
+        path_launches[path] = launches(since=since)
         print(f"{path} path: launches {json.dumps(path_launches[path])}",
               flush=True)
         return path_launches[path]

@@ -22,6 +22,14 @@ Data parallelism (`parallel/`) changes no closure: under a process group
 the BatchNorms are `models/common.py::SyncBatchNorm`, the masked means of
 `core/losses.py` are the global batch's, and `_update` averages the
 gradients over the ranks. Without one the steps run no collective.
+
+The steps name their stages as spans (`core/profiling.py::span`, recorded
+only inside `record()` or `trace()`): the FullNet train step is
+`train.step` over `step.prepare_gt`, `step.forward` (with the FK lift),
+`step.losses`, then `_update`'s `step.backward` (zero_grad and backward),
+`step.clip` (the missing-gradient fill, the mean over ranks, the clip)
+and `step.optimizer` (the optimizer and scheduler steps); the FullNet
+eval step is `eval.step` over `step.prepare_gt` and `step.forward`.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch import nn
 
 from horopose_tpu_torch import constants as C
 from horopose_tpu_torch.core import losses as L
+from horopose_tpu_torch.core.profiling import span
 from horopose_tpu_torch.kinematics.robot import Robot
 from horopose_tpu_torch.ops.rotations import (geodesic_distance,
                                               rot6d_to_rotmat, rot_to_rotmat,
@@ -314,16 +323,19 @@ def _update(cfg, loss: torch.Tensor, params: Sequence[nn.Parameter],
     mean over the ranks (`parallel.multihost.average_gradients`; the global
     norm and Adam then see the same gradients on every rank), global-norm
     clipping, then the optimizer and scheduler steps."""
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    average_gradients(params)
-    if cfg.clip_gradient:
-        clip_by_global_norm_(params, float(cfg.clip_gradient))
-    optimizer.step()
-    scheduler.step()
+    with span("step.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("step.clip"):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        average_gradients(params)
+        if cfg.clip_gradient:
+            clip_by_global_norm_(params, float(cfg.clip_gradient))
+    with span("step.optimizer"):
+        optimizer.step()
+        scheduler.step()
 
 
 def build_full_train_step(cfg, model: nn.Module, robot: Robot,
@@ -341,11 +353,17 @@ def build_full_train_step(cfg, model: nn.Module, robot: Robot,
 
     def step(batch: Batch, generator: Optional[torch.Generator]
              ) -> Dict[str, torch.Tensor]:
-        model.train()
-        gts = prepare_gt(cfg, robot, batch, pnp_fn)
-        preds, other_K = _forward(cfg, model, robot, batch, gts, generator)
-        loss, loss_dict = compute_full_losses(cfg, preds, gts, other_K)
-        _update(cfg, loss, params, optimizer, scheduler)
+        with span("train.step"):
+            model.train()
+            with span("step.prepare_gt"):
+                gts = prepare_gt(cfg, robot, batch, pnp_fn)
+            with span("step.forward"):
+                preds, other_K = _forward(cfg, model, robot, batch, gts,
+                                          generator)
+            with span("step.losses"):
+                loss, loss_dict = compute_full_losses(cfg, preds, gts,
+                                                      other_K)
+            _update(cfg, loss, params, optimizer, scheduler)
         return {k: v.detach() for k, v in dict(loss=loss, **loss_dict).items()}
 
     return step
@@ -445,21 +463,24 @@ def build_full_eval_step(cfg, model: nn.Module, robot: Robot,
 
     @torch.no_grad()
     def evaluate(batch: Batch):
-        model.eval()
-        gts = prepare_gt(cfg, robot, batch, pnp_fn)
-        preds, other_K = _forward(cfg, model, robot, batch, gts)
-        row_mask = batch.get("_valid")
-        if row_mask is not None:
-            row_mask = row_mask.float()
-        loss, loss_dict = compute_full_losses(cfg, preds, gts, other_K,
-                                              row_mask=row_mask)
-        # reference quirk, kept for parity with the JAX package: the logged
-        # rotation_diff compares against the base rotation gt_rot, while
-        # the loss uses the root-frame gt_root_rot
-        rotation_diff = L.row_mean(
-            geodesic_distance(rot_to_rotmat(preds["rot"]),
-                              rot_to_rotmat(gts["gt_rot"])), row_mask)
-        return preds, gts, dict(loss=loss, rotation_diff=rotation_diff,
-                                **loss_dict)
+        with span("eval.step"):
+            model.eval()
+            with span("step.prepare_gt"):
+                gts = prepare_gt(cfg, robot, batch, pnp_fn)
+            with span("step.forward"):
+                preds, other_K = _forward(cfg, model, robot, batch, gts)
+            row_mask = batch.get("_valid")
+            if row_mask is not None:
+                row_mask = row_mask.float()
+            loss, loss_dict = compute_full_losses(cfg, preds, gts, other_K,
+                                                  row_mask=row_mask)
+            # reference quirk, kept for parity with the JAX package: the logged
+            # rotation_diff compares against the base rotation gt_rot, while
+            # the loss uses the root-frame gt_root_rot
+            rotation_diff = L.row_mean(
+                geodesic_distance(rot_to_rotmat(preds["rot"]),
+                                  rot_to_rotmat(gts["gt_rot"])), row_mask)
+            return preds, gts, dict(loss=loss, rotation_diff=rotation_diff,
+                                    **loss_dict)
 
     return evaluate

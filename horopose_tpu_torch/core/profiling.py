@@ -1,38 +1,168 @@
-"""Tracing, step timing and numerical tripwires.
+"""Spans, counters, tracing and numerical tripwires.
 
-Port of `horopose_tpu/core/profiling.py` in PyTorch's idiom:
+Port of `horopose_tpu/core/profiling.py` in PyTorch's idiom, with the
+program's own instrumentation:
+  - `span(name)`: a stage of the program (the Predictor's call, the train
+    step and their parts). With no recording active it returns one shared
+    no-op context: no clock is read, nothing is allocated. Inside
+    `record()` it appends (start_ns, end_ns, name, parent, root) to the
+    recorder, on `time.time_ns()`, the clock `torch.profiler` stamps its
+    events with, so a span lines up with the card's activity in a trace;
+  - `record()`: makes one in-memory `Recorder` active for the process and
+    yields it; its spans and the counters' gains are read after it exits;
+  - `counters` and `count(name, n)`: process-wide integers, always on,
+    read as differences (`counter_deltas`): the hand kernels' launches
+    (`<wrapper>.launches`) and the bytes the Predictor sends to the card
+    (`serve.upload_bytes`);
   - `trace(log_dir)`: a `torch.profiler` context over the CPU and, where
     there is one, the card, writing a Chrome trace (chrome://tracing,
-    Perfetto) into `log_dir`;
+    Perfetto) into `log_dir`; it records spans, and each span also opens
+    `torch.profiler.record_function(name)`, so the trace shows the
+    program's stages on the card's timeline;
   - `enable_debug_nans`: autograd anomaly detection, which raises where a
     backward produces NaN (the JAX package's `jax_debug_nans`);
   - `assert_finite`: the count of non-finite elements as a device tensor,
-    with no host read, so a step can log it without a sync;
-  - `StepTimer`: steady-state step timing, the first `skip_first` steps
-    left out, the device synchronised before each reading;
-  - `chained_seconds`: seconds an iteration of `step(carry, *args) ->
-    carry`, timed with CUDA events on the card and the host clock on CPU.
+    with no host read, so a step can log it without a sync.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
-from typing import Callable, Iterable
+from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
+
+# (start_ns, end_ns, name, parent, root): parent is the list index of the
+# enclosing span on the same thread (None for an outermost span), root the
+# index of the outermost one, shared by every span of one call or step
+SpanRecord = Tuple[int, int, str, Optional[int], int]
+
+counters: Dict[str, int] = collections.defaultdict(int)
+_counter_lock = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the process-wide counter `name`."""
+    with _counter_lock:
+        counters[name] += n
+
+
+def counter_deltas(before: Mapping[str, int]) -> Dict[str, int]:
+    """What each counter gained since `before`, a copy of `counters`."""
+    with _counter_lock:
+        now = dict(counters)
+    return {k: v - before.get(k, 0) for k, v in now.items()}
+
+
+class Recorder:
+    """The spans of one `record()`, and after it exits the counters' gains
+    over it (`counts`)."""
+
+    def __init__(self, annotate: bool = False):
+        self.spans: List[Optional[SpanRecord]] = []
+        self.counts: Dict[str, int] = {}
+        self.annotate = annotate
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> List[Tuple[int, int]]:
+        """This thread's open spans, (index, root) each."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_active: Optional[Recorder] = None
+
+
+class _Span:
+    __slots__ = ("rec", "name", "index", "parent", "root", "start",
+                 "annotation")
+
+    def __init__(self, rec: Recorder, name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        rec = self.rec
+        stack = rec._stack()
+        with rec._lock:
+            self.index = len(rec.spans)
+            rec.spans.append(None)
+        self.parent, self.root = stack[-1] if stack else (None, self.index)
+        stack.append((self.index, self.root))
+        self.annotation = None
+        if rec.annotate:
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.start = time.time_ns()
+        return None
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        self.rec._stack().pop()
+        self.rec.spans[self.index] = (self.start, end, self.name,
+                                      self.parent, self.root)
+        return False
+
+
+def span(name: str):
+    """A context over one stage of the program, recorded inside
+    `record()` and `trace()`; elsewhere a shared no-op."""
+    rec = _active
+    if rec is None:
+        return _NO_SPAN
+    return _Span(rec, name)
+
+
+@contextlib.contextmanager
+def _recording(annotate: bool):
+    global _active
+    rec, before = Recorder(annotate), _active
+    with _counter_lock:
+        start = dict(counters)
+    _active = rec
+    try:
+        yield rec
+    finally:
+        _active = before
+        rec.counts = counter_deltas(start)
+
+
+def record():
+    """Record the program's spans in memory while the context is open;
+    yields the `Recorder`. No file is written."""
+    return _recording(annotate=False)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Profile the enclosed code; on exit write `trace.json` (a Chrome
-    trace) under `log_dir`."""
+    """Profile the enclosed code, with the program's spans as
+    `record_function` ranges; on exit write `trace.json` (a Chrome trace)
+    under `log_dir`."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, \
+            _recording(annotate=True):
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
@@ -63,68 +193,3 @@ def assert_finite(tree, name: str = "tree") -> torch.Tensor:
     if not counts:
         return torch.zeros((), dtype=torch.int64)
     return torch.stack([c.to(counts[0].device) for c in counts]).sum()
-
-
-def _sync():
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Steady-state step timing with warm-up exclusion: `with
-    timer.measure(): step()` synchronises the card (where there is one)
-    before the clock starts and after the step, and the first
-    `skip_first` steps do not count."""
-
-    def __init__(self, skip_first: int = 1):
-        self.skip_first = skip_first
-        self._n = 0
-        self._total = 0.0
-
-    @contextlib.contextmanager
-    def measure(self):
-        _sync()
-        t0 = time.perf_counter()
-        yield
-        _sync()
-        dt = time.perf_counter() - t0
-        self._n += 1
-        if self._n > self.skip_first:
-            self._total += dt
-
-    @property
-    def mean(self) -> float:
-        return self._total / max(self._n - self.skip_first, 1)
-
-
-def chained_seconds(step: Callable, carry0, *args, iters: int = 10,
-                    passes: int = 1) -> float:
-    """Seconds an iteration of `step(carry, *args) -> carry`: `iters`
-    iterations chained through the carry, after one warm-up pass, the mean
-    of `passes` timed passes. A CUDA carry is timed with CUDA events on
-    its stream, a CPU one with the host clock."""
-    on_card = isinstance(carry0, torch.Tensor) and carry0.is_cuda
-
-    def run():
-        c = carry0
-        for _ in range(iters):
-            c = step(c, *args)
-        return c
-
-    with torch.no_grad():
-        run()
-        dts = []
-        for _ in range(max(1, passes)):
-            if on_card:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                run()
-                end.record()
-                end.synchronize()
-                dts.append(start.elapsed_time(end) / 1e3)
-            else:
-                t0 = time.perf_counter()
-                run()
-                dts.append(time.perf_counter() - t0)
-    return sum(dts) / len(dts) / iters

@@ -16,7 +16,8 @@ output channels a thread), two blocks an SM, bound by the 67 TFLOP/s of
 the float32 units, 0.144 ms at that shape.
 
 A CPU tensor takes the plain version (`ops.conv3x3.conv3x3_s2d_plain`).
-A CUDA tensor always takes the kernel or raises.
+A CUDA tensor always takes the kernel or raises. Each launch adds 1 to the
+counter `conv3x3_nhwc.launches` (`core/profiling.py::counters`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Tuple
 import torch
 
 from horopose_tpu_torch import cuda_build
+from horopose_tpu_torch.core.profiling import count
 
 SOURCE = "conv3x3"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -116,11 +118,8 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), w.data_ptr(), int(bf16), B, H, W, C, Fo, blocks,
         y.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         x.device.index)
-    conv3x3_nhwc.launches += 1
+    count("conv3x3_nhwc.launches")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return y
 
-
-# kernel launches since the last reset; read by chip_smoke.py
-conv3x3_nhwc.launches = 0

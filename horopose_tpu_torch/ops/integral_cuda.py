@@ -37,6 +37,8 @@ A CUDA tensor always takes the kernel or raises. The two wrappers are the
 CUDA implementations of the operators `horopose::soft_argmax_3d_fwd` and
 `horopose::soft_argmax_3d_bwd` that `ops/integral.py` registers, through
 which the model, its gradient and an exported program reach them.
+Each launch adds 1 to the counter `<wrapper>.launches`
+(`core/profiling.py::counters`).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from typing import Tuple
 import torch
 
 from horopose_tpu_torch import cuda_build
+from horopose_tpu_torch.core.profiling import count
 
 SOURCE = "soft_argmax"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -148,7 +151,7 @@ def soft_argmax_3d_fwd(x: torch.Tensor
         x.data_ptr(), int(x.dtype == torch.bfloat16), int(vec), BK, D, H, W,
         splits, per, partial.data_ptr(), uvd.data_ptr(), ex.data_ptr(),
         stats.data_ptr(), _stream(x), x.device.index)
-    soft_argmax_3d_fwd.launches += 1
+    count("soft_argmax_3d_fwd.launches")
     if err != 0:
         raise RuntimeError(f"soft_argmax_3d_fwd launch failed: CUDA error "
                            f"{err}")
@@ -182,7 +185,7 @@ def soft_argmax_3d_partials(x: torch.Tensor, h0: int) -> torch.Tensor:
         x.data_ptr(), int(x.dtype == torch.bfloat16),
         int(vector_loads(x.data_ptr(), W, x.element_size())), BK, D, h, W,
         int(h0), splits, per, partial.data_ptr(), _stream(x), x.device.index)
-    soft_argmax_3d_partials.launches += 1
+    count("soft_argmax_3d_partials.launches")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return partial
@@ -215,7 +218,7 @@ def soft_argmax_3d_merge(partials: torch.Tensor, D: int, H: int, W: int
     err = _function(name)(
         partials.data_ptr(), BK, S, D, H, W, uvd.data_ptr(), ex.data_ptr(),
         stats.data_ptr(), _stream(partials), partials.device.index)
-    soft_argmax_3d_merge.launches += 1
+    count("soft_argmax_3d_merge.launches")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return uvd, ex, stats
@@ -247,14 +250,8 @@ def soft_argmax_3d_bwd(x: torch.Tensor, ex: torch.Tensor,
         x.data_ptr(), int(x.dtype == torch.bfloat16), int(vec), BK, D, H, W,
         splits, per, ex.data_ptr(), stats.data_ptr(), g.data_ptr(),
         dx.data_ptr(), _stream(x), x.device.index)
-    soft_argmax_3d_bwd.launches += 1
+    count("soft_argmax_3d_bwd.launches")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return dx
 
-
-# kernel launches since the last reset; read by chip_smoke.py
-soft_argmax_3d_fwd.launches = 0
-soft_argmax_3d_bwd.launches = 0
-soft_argmax_3d_partials.launches = 0
-soft_argmax_3d_merge.launches = 0

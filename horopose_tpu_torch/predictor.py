@@ -21,6 +21,15 @@ lies on each distinct device of the mesh, and the outputs are gathered on
 the mesh's first device, then on the host. Without a mesh the forward is
 `tools/export.py::ServingModule`'s, on one device.
 
+A call names its stages as spans (`core/profiling.py::span`, recorded
+only inside `record()` or `trace()`): `serve.call` over `serve.prep`
+(`preprocess`: `serve.prep.boxes`, the per-frame bbox and crop-intrinsics
+loop; `serve.prep.upload`, the host arrays sent to the device;
+`serve.prep.crop`, both crops and the k prior), `serve.forward`
+(`forward`) and `serve.return` (`serve.post`: the projection and the
+rotation matrices; `serve.copy_back`: the outputs read back). The counter
+`serve.upload_bytes` adds the bytes of every host array sent.
+
 Usage:
     pred = Predictor(FullNetConfig(), state_dict, device="cuda")
     pred = Predictor.from_experiment("experiments/<exp>")   # any checkpoint
@@ -40,6 +49,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from horopose_tpu_torch.core.profiling import count, span
 from horopose_tpu_torch.data import roboutils as RU
 from horopose_tpu_torch.data.crop import crop_resize_bilinear
 from horopose_tpu_torch.ops.rotations import rot_to_rotmat
@@ -107,37 +117,47 @@ class Predictor:
 
         Returns (crops, crops_root) (B, S, S, 3) uint8 and K_crops (B, 3, 3),
         k_values (B,) float32, all on the device."""
-        B, H, W = images.shape[:3]
-        if bboxes is None:
-            bboxes = np.tile(np.asarray([0, 0, W, H], np.float32)[None],
-                             (B, 1))
-        bboxes_strict = np.zeros((B, 4), np.int64)
-        K_crops = np.empty((B, 3, 3), np.float32)
-        for i in range(B):
-            bbox = RU.get_bbox(bboxes[i], W, H)
-            bboxes_strict[i] = bbox
-            wmin, hmin, wmax, hmax = [int(v) for v in bbox]
-            sq = int(max(wmax - wmin, hmax - hmin))
-            K_sq = K[i].astype(np.float64).copy()
-            K_sq[0, 2] -= (wmin - int((sq - (wmax - wmin)) // 2))
-            K_sq[1, 2] -= (hmin - int((sq - (hmax - hmin)) // 2))
-            K_crops[i] = RU.get_K_crop_resize_np(
-                K_sq, (0.0, 0.0, float(sq), float(sq)), (sq, sq),
-                (self.size, self.size))
-        frames = torch.as_tensor(np.ascontiguousarray(images, np.uint8),
-                                 device=self.device)
-        boxes = torch.as_tensor(bboxes_strict, device=self.device)
-        crops = crop_resize_bilinear(frames, boxes, self.size)
-        crops_root = crops if self.root_size == self.size else \
-            crop_resize_bilinear(frames, boxes, self.root_size)
-        # k prior: the strict ORIGINAL-frame bbox with the ORIGINAL
-        # intrinsics, as training pairs them (the crop K would scale k by
-        # size/sq and bias the root depth)
-        K_orig = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
-        k_values = k_value_from_bbox(boxes.float(), K_orig[:, 0, 0].abs(),
-                                     K_orig[:, 1, 1].abs())
-        return (crops, crops_root,
-                torch.as_tensor(K_crops, device=self.device), k_values)
+        with span("serve.prep"):
+            B, H, W = images.shape[:3]
+            with span("serve.prep.boxes"):
+                if bboxes is None:
+                    bboxes = np.tile(
+                        np.asarray([0, 0, W, H], np.float32)[None], (B, 1))
+                bboxes_strict = np.zeros((B, 4), np.int64)
+                K_crops = np.empty((B, 3, 3), np.float32)
+                for i in range(B):
+                    bbox = RU.get_bbox(bboxes[i], W, H)
+                    bboxes_strict[i] = bbox
+                    wmin, hmin, wmax, hmax = [int(v) for v in bbox]
+                    sq = int(max(wmax - wmin, hmax - hmin))
+                    K_sq = K[i].astype(np.float64).copy()
+                    K_sq[0, 2] -= (wmin - int((sq - (wmax - wmin)) // 2))
+                    K_sq[1, 2] -= (hmin - int((sq - (hmax - hmin)) // 2))
+                    K_crops[i] = RU.get_K_crop_resize_np(
+                        K_sq, (0.0, 0.0, float(sq), float(sq)), (sq, sq),
+                        (self.size, self.size))
+            with span("serve.prep.upload"):
+                frames = self._upload(np.ascontiguousarray(images, np.uint8))
+                boxes = self._upload(bboxes_strict)
+                K_orig = self._upload(np.asarray(K, np.float32))
+                K_crops = self._upload(K_crops)
+            with span("serve.prep.crop"):
+                crops = crop_resize_bilinear(frames, boxes, self.size)
+                crops_root = crops if self.root_size == self.size else \
+                    crop_resize_bilinear(frames, boxes, self.root_size)
+                # k prior: the strict ORIGINAL-frame bbox with the ORIGINAL
+                # intrinsics, as training pairs them (the crop K would scale
+                # k by size/sq and bias the root depth)
+                k_values = k_value_from_bbox(boxes.float(),
+                                             K_orig[:, 0, 0].abs(),
+                                             K_orig[:, 1, 1].abs())
+            return crops, crops_root, K_crops, k_values
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the device, its bytes counted in
+        `serve.upload_bytes`."""
+        count("serve.upload_bytes", array.nbytes)
+        return torch.as_tensor(array, device=self.device)
 
     @torch.inference_mode()
     def forward(self, crops: torch.Tensor, crops_root: torch.Tensor,
@@ -146,11 +166,13 @@ class Predictor:
         """FullNet forward and FK lift on preprocessed device tensors
         (`tools/export.py::ServingModule.outputs`), over the mesh when
         there is one."""
-        if self.mesh is None:
-            return self.serving.outputs(crops, crops_root, k_values, K_crops)
-        normalize = self.serving.normalize
-        return self.serving.lift(self._mesh_forward(
-            normalize(crops), normalize(crops_root), k_values, K_crops))
+        with span("serve.forward"):
+            if self.mesh is None:
+                return self.serving.outputs(crops, crops_root, k_values,
+                                            K_crops)
+            normalize = self.serving.normalize
+            return self.serving.lift(self._mesh_forward(
+                normalize(crops), normalize(crops_root), k_values, K_crops))
 
     def _mesh_forward(self, x: torch.Tensor, x_root: torch.Tensor,
                       k_values: torch.Tensor, K_crops: torch.Tensor
@@ -187,28 +209,30 @@ class Predictor:
                  bboxes: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """images (B, H, W, 3) uint8 full frames; K (B, 3, 3); bboxes
         (B, 4) xyxy robot boxes (the full frame when omitted)."""
-        crops, crops_root, K_crops, k_values = self.preprocess(
-            images, K, bboxes)
-        B = crops.shape[0]
-        if B == 0:
-            # no detections: run one dummy row and trim, so the outputs
-            # keep their shapes without a batch-0 path through the model
-            out = self.forward(
-                crops.new_zeros(1, *crops.shape[1:]),
-                crops_root.new_zeros(1, *crops_root.shape[1:]),
-                k_values.new_ones(1),
-                torch.eye(3, device=self.device)[None])
-            out = {k: v[:0] for k, v in out.items()}
-        else:
-            out = self.forward(crops, crops_root, k_values, K_crops)
-        with torch.inference_mode():
-            K_orig = torch.as_tensor(np.asarray(K, np.float32),
-                                     device=self.device)
-            kp2d = project_points(K_orig, out["xyz_fk"])
-            rotation = rot_to_rotmat(out["rot"])
-        return {k: v.cpu().numpy() for k, v in dict(
-            joints=out["pose"], rotation=rotation,
-            translation=out["trans"], root_depth=out["depth"],
-            keypoints_3d=out["xyz_fk"],
-            keypoints_3d_integral=out["xyz_int"],
-            keypoints_2d=kp2d).items()}
+        with span("serve.call"):
+            crops, crops_root, K_crops, k_values = self.preprocess(
+                images, K, bboxes)
+            B = crops.shape[0]
+            if B == 0:
+                # no detections: run one dummy row and trim, so the outputs
+                # keep their shapes without a batch-0 path through the model
+                out = self.forward(
+                    crops.new_zeros(1, *crops.shape[1:]),
+                    crops_root.new_zeros(1, *crops_root.shape[1:]),
+                    k_values.new_ones(1),
+                    torch.eye(3, device=self.device)[None])
+                out = {k: v[:0] for k, v in out.items()}
+            else:
+                out = self.forward(crops, crops_root, k_values, K_crops)
+            with span("serve.return"):
+                with span("serve.post"), torch.inference_mode():
+                    K_orig = self._upload(np.asarray(K, np.float32))
+                    kp2d = project_points(K_orig, out["xyz_fk"])
+                    rotation = rot_to_rotmat(out["rot"])
+                with span("serve.copy_back"):
+                    return {k: v.cpu().numpy() for k, v in dict(
+                        joints=out["pose"], rotation=rotation,
+                        translation=out["trans"], root_depth=out["depth"],
+                        keypoints_3d=out["xyz_fk"],
+                        keypoints_3d_integral=out["xyz_int"],
+                        keypoints_2d=kp2d).items()}

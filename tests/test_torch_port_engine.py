@@ -33,6 +33,7 @@ from horopose_tpu.tools.torch_weights import (
     convert_fullnet_reference_checkpoint, merge_into)
 from horopose_tpu_torch.core import engine as TE
 from horopose_tpu_torch.core import losses as TL
+from horopose_tpu_torch.core.profiling import record
 from horopose_tpu_torch.kinematics import Robot
 from horopose_tpu_torch.models import FullNet
 from horopose_tpu_torch.pipelines.common import FullNetConfig
@@ -519,6 +520,45 @@ def test_train_step_at_plain_random_init(np_batch, robots, jax_train_step):
     print(f"plain random init: global gradient cosine {cos:.7f}, worst "
           f"leaf l2-relative {l2:.3e}")
     assert cos > UNCONDITIONED_COSINE
+
+
+# (span, its parent) of one FullNet train step, in the order they open
+TRAIN_SPANS = [("train.step", None)] + [
+    (f"step.{stage}", "train.step") for stage in (
+        "prepare_gt", "forward", "losses", "backward", "clip", "optimizer")]
+
+
+def test_train_step_records_its_stages_in_order(np_batch, variables,
+                                                robots):
+    """One port train step inside `record`: `train.step` over its six
+    stages, opened in order, each closed before the next opens, all of
+    one root; its losses and the weights after it bit for bit those of
+    the same step on a second copy of the model outside `record`."""
+    _, cfg = _cfgs()
+    batch = TE.batch_to_torch(np_batch, "cpu")
+    runs = []
+    for recording in (False, True):
+        model = _port_model(variables)
+        opt, sched = TE.make_optimizer(cfg, model.parameters(), 1)
+        step = TE.build_full_train_step(cfg, model, robots[1], opt, sched)
+        if recording:
+            with record() as rec:
+                logs = step(batch, None)
+        else:
+            logs = step(batch, None)
+        runs.append((logs, model.state_dict()))
+    spans = rec.spans
+    assert [(s[2], None if s[3] is None else spans[s[3]][2])
+            for s in spans] == TRAIN_SPANS
+    assert {s[4] for s in spans} == {0}
+    stages = spans[1:]
+    assert all(a[1] <= b[0] for a, b in zip(stages, stages[1:]))
+    assert spans[0][0] <= stages[0][0] and stages[-1][1] <= spans[0][1]
+    (plain_logs, plain_sd), (logs, sd) = runs
+    for k, v in plain_logs.items():
+        assert torch.equal(logs[k], v), k
+    for k, v in plain_sd.items():
+        assert torch.equal(sd[k], v), k
 
 
 @pytest.mark.parametrize("valid", [False, True])

@@ -16,6 +16,7 @@ from horopose_tpu import native
 from horopose_tpu.config import make_default_cfg
 from horopose_tpu.data import roboutils as JRU
 from horopose_tpu.predictor import Predictor as JaxPredictor
+from horopose_tpu_torch.core.profiling import record
 from horopose_tpu_torch.data.crop import crop_resize_bilinear
 from horopose_tpu_torch.pipelines.common import (FullNetConfig, build_fullnet,
                                                  random_state_dict)
@@ -101,16 +102,22 @@ def predictors():
     return jpred, Predictor(cfg, sd, device="cpu")
 
 
-@pytest.fixture(scope="module")
-def outputs(predictors):
-    """A 64x64 frame with a full-frame bbox crops at scale 1, so both
-    packages feed the network identical crops."""
-    jpred, pred = predictors
+def _request():
+    """Two 64x64 frames and their intrinsics."""
     rng = np.random.RandomState(808)
     B = 2
     images = rng.randint(0, 256, (B, 64, 64, 3), dtype=np.uint8)
     K = np.tile(np.asarray([[60.0, 0, 31.5], [0, 62.0, 32.5], [0, 0, 1]],
                            np.float32)[None], (B, 1, 1))
+    return images, K
+
+
+@pytest.fixture(scope="module")
+def outputs(predictors):
+    """A 64x64 frame with a full-frame bbox crops at scale 1, so both
+    packages feed the network identical crops."""
+    jpred, pred = predictors
+    images, K = _request()
     crops, _, _, _ = pred.preprocess(images, K)
     assert np.array_equal(crops.numpy(), images)
     return jpred(images, K), pred(images, K)
@@ -155,6 +162,49 @@ def test_predictor_empty_batch(predictors):
     assert out["rotation"].shape == (0, 3, 3)
     assert out["keypoints_3d"].shape == (0, 7, 3)
     assert out["keypoints_2d"].shape == (0, 7, 2)
+
+
+# (span, its parent) of one call, in the order they open
+SERVE_SPANS = [("serve.call", None), ("serve.prep", "serve.call"),
+               ("serve.prep.boxes", "serve.prep"),
+               ("serve.prep.upload", "serve.prep"),
+               ("serve.prep.crop", "serve.prep"),
+               ("serve.forward", "serve.call"),
+               ("serve.return", "serve.call"),
+               ("serve.post", "serve.return"),
+               ("serve.copy_back", "serve.return")]
+
+
+def test_predictor_call_records_its_stages_in_order(predictors, outputs):
+    """One call inside `record`: `serve.call` over its stages, opened in
+    order, each closed before the next sibling opens, all of one root;
+    the outputs bit for bit those of the call made outside `record`."""
+    _, pred = predictors
+    images, K = _request()
+    with record() as rec:
+        out = pred(images, K)
+    spans = rec.spans
+    assert [(s[2], None if s[3] is None else spans[s[3]][2])
+            for s in spans] == SERVE_SPANS
+    assert {s[4] for s in spans} == {0}
+    for i, (start, end, _, parent, _) in enumerate(spans):
+        later = [t for t in spans[i + 1:] if t[3] == parent]
+        assert start <= end and (not later or end <= later[0][0])
+    for key in OUTPUT_KEYS:
+        assert np.array_equal(out[key], outputs[1][key]), key
+
+
+def test_predictor_counts_the_bytes_it_uploads(predictors):
+    """`serve.upload_bytes` grows by the frames, the int64 boxes, the
+    float32 K (in `preprocess` and again for the projection) and the
+    float32 crop intrinsics."""
+    _, pred = predictors
+    images, K = _request()
+    B = len(images)
+    with record() as rec:
+        pred(images, K)
+    assert rec.counts["serve.upload_bytes"] == \
+        images.nbytes + B * 4 * 8 + 3 * B * 9 * 4
 
 
 def test_predictor_rootnet_crop_size(rng):

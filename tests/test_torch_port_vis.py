@@ -256,7 +256,7 @@ def test_plots_are_no_ops_without_matplotlib(tmp_path, monkeypatch):
 def test_test_network_writes_plots_and_a_trace(tmp_path):
     """The test harness on a random resnet18 model: the ADD curve, the
     best and worst cases with --visualization, and a torch.profiler trace
-    under profile_dir."""
+    under profile_dir that names the eval step's spans."""
     import yaml
     from horopose_tpu_torch.config import make_cfg
     from horopose_tpu_torch.pipelines import test as port_test
@@ -277,7 +277,9 @@ def test_test_network_writes_plots_and_a_trace(tmp_path):
     assert {"summary.txt", "add_distribution.json", "vis_best_cases.jpg",
             "vis_worst_cases.jpg",
             f"add_distribution_curve_{test_dir.name}.jpg"} <= written
-    assert os.path.getsize(tmp_path / "profile" / "trace.json") > 0
+    with open(tmp_path / "profile" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"eval.step", "step.prepare_gt", "step.forward"} <= names
 
 
 # ---- profiling ----
@@ -293,25 +295,158 @@ def test_assert_finite_counts_without_a_host_read():
     assert int(TP.assert_finite({})) == 0
 
 
-def test_step_timer_leaves_out_the_warm_up():
-    timer = TP.StepTimer(skip_first=1)
-    for dt in (0.2, 0.01, 0.01):
-        with timer.measure():
-            time.sleep(dt)
-    assert 0.005 < timer.mean < 0.1
-
-
 def test_chained_seconds_and_trace_on_cpu(tmp_path):
+    """`trace` writes a Chrome trace in which each span is a
+    `record_function` range, and records the spans as `record` does."""
     w = torch.randn(32, 32) / 32
-
-    def step(c, w):
-        return torch.tanh(c @ w)
-
-    s = TP.chained_seconds(step, torch.randn(8, 32), w, iters=5, passes=2)
-    assert 0 < s < 1
     with TP.trace(str(tmp_path / "t")):
-        step(torch.randn(8, 32), w)
-    assert os.path.getsize(tmp_path / "t" / "trace.json") > 0
+        with TP.span("test.outer"), TP.span("test.inner"):
+            torch.tanh(torch.randn(8, 32) @ w)
+    with open(tmp_path / "t" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"test.outer", "test.inner", "aten::mm"} <= names
+    assert TP.span("test.after") is TP.span("test.other")
+
+
+def _tree(rec):
+    """{index: (name, parent, root)} of a recorder's spans."""
+    return {i: (s[2], s[3], s[4]) for i, s in enumerate(rec.spans)}
+
+
+def test_spans_nest_under_the_root_of_their_call():
+    with TP.record() as rec:
+        with TP.span("call"):
+            with TP.span("a"):
+                pass
+            with TP.span("b"), TP.span("b.1"):
+                pass
+        with TP.span("next"):
+            pass
+    assert _tree(rec) == {0: ("call", None, 0), 1: ("a", 0, 0),
+                          2: ("b", 0, 0), 3: ("b.1", 2, 0),
+                          4: ("next", None, 4)}
+    start, end = {}, {}
+    for i, (t0, t1, *_) in enumerate(rec.spans):
+        start[i], end[i] = t0, t1
+        assert t0 <= t1
+    for child, parent in ((1, 0), (2, 0), (3, 2)):
+        assert start[parent] <= start[child] <= end[child] <= end[parent]
+    assert end[2] <= start[4]
+
+
+def test_a_span_closes_on_an_exception():
+    with TP.record() as rec:
+        with pytest.raises(ValueError, match="inside"):
+            with TP.span("outer"), TP.span("inner"):
+                raise ValueError("inside")
+        with TP.span("after"):
+            pass
+    assert _tree(rec) == {0: ("outer", None, 0), 1: ("inner", 0, 0),
+                          2: ("after", None, 2)}
+    assert all(s[0] <= s[1] for s in rec.spans)
+
+
+def test_threads_keep_their_own_span_stacks():
+    """Two threads open their outer spans before either opens an inner
+    one: each inner span's parent is its own thread's outer span."""
+    import threading
+    both_open = threading.Barrier(2, timeout=10)
+
+    def work(tag):
+        with TP.span(f"{tag}.outer"):
+            both_open.wait()
+            with TP.span(f"{tag}.inner"):
+                pass
+
+    with TP.record() as rec:
+        threads = [threading.Thread(target=work, args=(t,)) for t in "xy"]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    by_name = {s[2]: (i, s[3], s[4]) for i, s in enumerate(rec.spans)}
+    for tag in "xy":
+        outer, parent, root = by_name[f"{tag}.outer"]
+        assert parent is None and root == outer
+        assert by_name[f"{tag}.inner"][1:] == (outer, outer)
+
+
+def test_a_span_off_reads_no_clock_and_opens_no_range(monkeypatch):
+    """Outside `record` every span is one shared no-op: it reads no clock
+    and opens no `record_function`, entered or not."""
+    def refused(*_a, **_k):
+        raise AssertionError("a span off touched the clock or profiler")
+
+    with TP.record():
+        pass
+    monkeypatch.setattr(time, "time_ns", refused)
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    first, second = TP.span("a"), TP.span("b")
+    assert first is second
+    with first, TP.span("c"):
+        pass
+
+
+def test_counters_are_read_as_differences():
+    before = dict(TP.counters)
+    TP.count("test.items", 3)
+    with TP.record() as rec:
+        TP.count("test.items")
+        TP.count("test.bytes", 100)
+    TP.count("test.items", 5)
+    assert rec.counts["test.items"] == 1 and rec.counts["test.bytes"] == 100
+    gained = TP.counter_deltas(before)
+    assert gained["test.items"] == 9 and gained["test.bytes"] == 100
+
+
+def test_counters_and_spans_lose_nothing_across_threads():
+    """Eight threads count and open spans with the interpreter switching
+    threads as often as it can: no count and no span is lost."""
+    import sys
+    import threading
+    n_threads, n = 8, 2000
+    before = dict(TP.counters)
+
+    def work():
+        for _ in range(n):
+            TP.count("test.stress")
+            with TP.span("test.stress"):
+                pass
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with TP.record() as rec:
+            threads = [threading.Thread(target=work)
+                       for _ in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert TP.counter_deltas(before)["test.stress"] == n_threads * n
+    assert len(rec.spans) == n_threads * n
+    assert all(s is not None and s[3] is None and s[4] == i
+               for i, s in enumerate(rec.spans))
+
+
+def test_a_span_lies_on_the_profiler_clock():
+    """An op run inside a span appears in `torch.profiler`'s trace within
+    the span's [start_ns, end_ns]: both read the same clock."""
+    a = torch.randn(64, 64)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TP.record() as rec, TP.span("test.mm"):
+            torch.mm(a, a)
+    start, end = rec.spans[0][:2]
+    mm = [e for e in prof.profiler.kineto_results.events()
+          if e.name() == "aten::mm"]
+    assert len(mm) == 1
+    assert start <= mm[0].start_ns()
+    assert mm[0].start_ns() + mm[0].duration_ns() <= end
 
 
 def test_enable_debug_nans_toggles_anomaly_detection():
