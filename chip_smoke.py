@@ -191,8 +191,15 @@ Phases, each of which raises on failure:
      over the meshes spatial (2,), spatial (4,), data x spatial (2, 2)
      and data (2,) at b=1 and 8: float32 against the meshless Predictor
      at the CPU tests' bounds with TF32 off and deterministic cuDNN,
-     bfloat16 within twice the meshless bf16 forward's distance from the
-     float32 one, the launches of the sharded path, and each mesh's b=1
+     bfloat16 within twice the meshless bf16 forward's largest distance
+     from the float32 one over the 8 requests, each served alone and all
+     together, the launches of the sharded path; the layers of spatial
+     (2,) at b=1 in bf16 against the meshless ones (every leaf module's
+     input and output in call order: the first that differs must be an
+     output reached from a bit-identical input, within one ulp of its
+     dtype at its largest magnitude); both gates, outputs and layers,
+     must reject that forward with a planted fault, every row a shard
+     takes from another dropped (`dropped_halo`); and each mesh's b=1
      latency beside the meshless one (no gate); then phase 11's V1
      (reg_joint_map, whose joint maps are gathered onto a group's first
      device for their 1-D soft-argmax) over spatial (2,) and data x
@@ -203,10 +210,18 @@ Phases, each of which raises on failure:
      (a batch split in two sums in another order) or twice its distance
      on the weights one ulp up or down (a 2-D pixel mean that a keypoint
      near the camera plane dominates magnifies rounding);
+  16. the FullNet's memory format at the benchmark cells' sizes: one
+     Predictor call of the panda FullNet at b=128 and one stage-2 step of
+     the baxter FullNet at b=64, each traced on the device after its
+     warm-up: the device time of cuDNN's layout transposes (kernels whose
+     names hold `nchwToNhwc` or `nhwcToNchw`; fails above 1 ms a call or
+     2 ms a step), the BatchNorm kernels by name, the busy ms, the top
+     kernels, and the counter `fullnet.input_relayouts` (no crop copied
+     into channels_last on either path);
   7. one JSON line describing every kernel, and as the last line
      {"ok": true, "device": {...}}.
 
-They run in the order 1-5, 8, 9, 10, 11, 12, 13, 14, 15, 6, 7: phases 8-12 keep
+They run in the order 1-5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 6, 7: phases 8-12 keep
 cuDNN's default TF32 for float32, as phases 4 and 5 do (phases 11-13
 turn it off for their comparisons), and phase 8's b=2 comparison runs
 with phase 6's. Each phase prints its wall time. Phases 9 and 10 close their
@@ -3506,7 +3521,14 @@ MESH_BATCHES = (1, 8)
 # TF32 off and deterministic cuDNN: the sharded convs see other shapes
 MESH_ATOL, MESH_RTOL = 5e-5, 1e-4
 # bfloat16: the sharded forward within this factor of the meshless bf16
-# forward's own distance from the float32 one
+# forward's largest distance from the float32 one over the requests of
+# the largest batch, each served alone and all together. One request's
+# distance is one sample of rounding: where a sharded conv's cuDNN kernel
+# (another shape) rounds one bf16 ulp otherwise from a bit-identical
+# input, the b=1 outputs moved 0.0043, 4.2x that one request's own
+# distance of 0.0010, while the 8 requests together read 0.0104 (H100
+# 80GB HBM3 at 700 W, channels_last FullNet; at b=8 the sharded forward
+# is bit-identical to the meshless one)
 MESH_BF16_MARGIN = 2.0
 MESH_LATENCY_REPS = 5
 SPLIT_SHAPES = ((1, *CELL), (8, *CELL))
@@ -3667,17 +3689,97 @@ def _max_abs(a: dict, b: dict) -> dict:
             for k in a}
 
 
+@contextlib.contextmanager
+def dropped_halo():
+    """A planted fault in the row-sharded forward: every row a shard would
+    take from another shard (a conv's, pool's, deconv's or upsample's
+    halo, a reshard, a gather) reads as the padding fill instead."""
+    from horopose_tpu_torch.parallel import spatial
+    real = spatial._rows_on
+
+    def own_rows(x, lo, hi, device, fill=0.0):
+        t = real(x, lo, hi, device, fill)
+        overlap = [min(hi, r1) - max(lo, r0) for r0, r1 in x.rows]
+        r0, r1 = x.rows[int(np.argmax(overlap))]
+        keep0, keep1 = max(r0 - lo, 0), max(min(r1, hi) - lo, 0)
+        if keep0 or keep1 < hi - lo:
+            t = t.clone()
+            t[:, :, :keep0] = fill
+            t[:, :, keep1:] = fill
+        return t
+
+    spatial._rows_on = own_rows
+    try:
+        yield
+    finally:
+        spatial._rows_on = real
+
+
+def _whole(v):
+    """A hooked value as one tensor: a row-sharded value's shards
+    concatenated on the first one's device; None for what is no tensor."""
+    from horopose_tpu_torch.parallel.spatial import RowSharded
+    if isinstance(v, RowSharded):
+        first = v.shards[0].device
+        return torch.cat([t.to(first) for t in v.shards], dim=2)
+    return v.detach().clone() if isinstance(v, torch.Tensor) else None
+
+
+def layer_tape(model: torch.nn.Module, call) -> list:
+    """(module name, "in" or "out", value) of every leaf module of `model`
+    in call order over `call()`, from forward hooks."""
+    tape, handles = [], []
+    for name, m in model.named_modules():
+        if next(m.children(), None) is not None:
+            continue
+        handles.append(m.register_forward_pre_hook(
+            lambda mod, args, name=name: tape.append(
+                (name, "in", _whole(args[0]) if args else None))))
+        handles.append(m.register_forward_hook(
+            lambda mod, args, out, name=name: tape.append(
+                (name, "out", _whole(out)))))
+    try:
+        call()
+    finally:
+        for h in handles:
+            h.remove()
+    return tape
+
+
+def first_divergence(want: list, got: list) -> dict:
+    """The first entry where two `layer_tape`s differ, and whether it is
+    rounding: an output reached from a bit-identical input (the entry
+    before it, its own input), at most one ulp of its dtype at the
+    reference's largest magnitude from it."""
+    if [e[:2] for e in want] != [e[:2] for e in got]:
+        raise AssertionError("the two forwards call other modules")
+    for (name, kind, x), (_, _, y) in zip(want, got):
+        if x is None or torch.equal(x, y):
+            continue
+        d = float((x.float() - y.float()).abs().max())
+        top = float(x.float().abs().max())
+        ulp = torch.finfo(x.dtype).eps * 2.0 ** math.floor(math.log2(top))             if top > 0 else torch.finfo(x.dtype).tiny
+        return dict(entries=len(want), module=name, kind=kind, dtype=str(
+            x.dtype), max_abs=d, largest=top, ulp=ulp,
+            rounding=kind == "out" and d <= ulp)
+    return dict(entries=len(want), module=None, rounding=True)
+
+
 def phase15_meshes(cfg, sd, base, device, card: str, counts) -> dict:
     """The flagship Predictor over each of MESHES15 at b=1 and 8 against
     the meshless `base` Predictors ({"float32", "bfloat16"}): float32 at
     the CPU tests' bounds with TF32 off and deterministic cuDNN, bfloat16
-    within MESH_BF16_MARGIN of the meshless bf16 forward's distance from
-    the float32 one; the launches of the sharded path; then each mesh's
-    b=1 latency (CUDA events, cuDNN's defaults) beside the meshless one."""
+    within MESH_BF16_MARGIN of the meshless bf16 forward's largest
+    distance from the float32 one over the requests, each alone and all
+    together; the launches of the sharded path; spatial (2,)'s layers at
+    b=1 in bf16 against the meshless ones (`first_divergence`), and both
+    gates against that forward with `dropped_halo`; then each mesh's b=1
+    latency (CUDA events, cuDNN's defaults) beside the meshless one."""
     from horopose_tpu_torch.parallel.mesh import make_mesh
     from horopose_tpu_torch.predictor import Predictor
     reset, read = counts
-    frames, K, bboxes = synthetic_requests(max(MESH_BATCHES), SEED + 15)
+    n_req = max(MESH_BATCHES)
+    frames, K, bboxes = synthetic_requests(n_req, SEED + 15)
     preds = {}
     for label, (axes, shape) in MESHES15.items():
         n = int(np.prod(shape))
@@ -3688,36 +3790,77 @@ def phase15_meshes(cfg, sd, base, device, card: str, counts) -> dict:
             raise AssertionError(f"{label}: more than one model copy on one "
                                  "card")
     result = {}
+
+    def gate(pair, b):
+        """(d32, d16, float32 keys out of bounds, bfloat16 keys out)."""
+        out32 = pair["float32"](frames[:b], K[:b], bboxes[:b])
+        out16 = pair["bfloat16"](frames[:b], K[:b], bboxes[:b])
+        check_outputs(out32, b, 8, 7)
+        check_outputs(out16, b, 8, 7)
+        d32 = _max_abs(out32, refs[("float32", b)])
+        d16 = _max_abs(out16, refs[("bfloat16", b)])
+        bad32 = [k for k in out32 if not np.allclose(
+            out32[k], refs[("float32", b)][k], atol=MESH_ATOL,
+            rtol=MESH_RTOL)]
+        bad16 = [k for k in out16 if d16[k] > MESH_BF16_MARGIN * floor[k]]
+        return d32, d16, bad32, bad16
+
     with deterministic_convs():
         refs = {(dt, b): base[dt](frames[:b], K[:b], bboxes[:b])
                 for dt in base for b in MESH_BATCHES}
+        alone = [_max_abs(*(base[dt](frames[i:i + 1], K[i:i + 1],
+                                     bboxes[i:i + 1]) for dt in base))
+                 for i in range(n_req)]
+        together = [_max_abs(refs[("bfloat16", b)], refs[("float32", b)])
+                    for b in MESH_BATCHES]
+        floor = {k: max(d[k] for d in alone + together) for k in alone[0]}
+        print(f"phase 15 (a) the meshless bf16 forward's largest distance "
+              f"from float32 over {n_req} requests, each alone and "
+              f"together: {json.dumps(floor)}; request 0 alone "
+              f"{json.dumps(alone[0])} ({card})", flush=True)
         reset()
         calls = {}
         for label, pair in preds.items():
             for b in MESH_BATCHES:
-                out32 = pair["float32"](frames[:b], K[:b], bboxes[:b])
-                out16 = pair["bfloat16"](frames[:b], K[:b], bboxes[:b])
+                d32, d16, bad32, bad16 = gate(pair, b)
                 calls[label] = calls.get(label, 0) + 2
-                check_outputs(out32, b, 8, 7)
-                check_outputs(out16, b, 8, 7)
-                d32 = _max_abs(out32, refs[("float32", b)])
-                d16 = _max_abs(out16, refs[("bfloat16", b)])
-                floor = _max_abs(refs[("bfloat16", b)], refs[("float32", b)])
-                bad32 = [k for k in out32 if not np.allclose(
-                    out32[k], refs[("float32", b)][k], atol=MESH_ATOL,
-                    rtol=MESH_RTOL)]
-                bad16 = [k for k in out16
-                         if d16[k] > MESH_BF16_MARGIN * floor[k]]
                 print(f"phase 15 (a) {label} b={b}: float32 max |d| vs "
                       f"meshless {json.dumps(d32)} (atol {MESH_ATOL}, rtol "
                       f"{MESH_RTOL}); bfloat16 {json.dumps(d16)} against "
-                      f"{MESH_BF16_MARGIN} x the meshless bf16-f32 distance "
-                      f"{json.dumps(floor)} ({card})", flush=True)
+                      f"{MESH_BF16_MARGIN} x that largest distance "
+                      f"({card})", flush=True)
                 if bad32 or bad16:
                     raise AssertionError(f"phase 15 (a) {label} b={b}: "
                                          f"float32 {bad32}, bfloat16 {bad16}")
-                result[(label, b)] = dict(f32=d32, bf16=d16, bf16_floor=floor)
+                result[(label, b)] = dict(f32=d32, bf16=d16)
         launches = read("row-sharded serving")
+
+        # the gates' own check: spatial (2,) layer by layer, then with the
+        # planted fault
+        pair = preds["spatial (2,)"]
+        one = (frames[:1], K[:1], bboxes[:1])
+        meshless = layer_tape(base["bfloat16"].model,
+                              lambda: base["bfloat16"](*one))
+        layers = first_divergence(meshless, layer_tape(
+            pair["bfloat16"].model, lambda: pair["bfloat16"](*one)))
+        with dropped_halo():
+            faulty = first_divergence(meshless, layer_tape(
+                pair["bfloat16"].model, lambda: pair["bfloat16"](*one)))
+            fault = gate(pair, 1)
+        del meshless
+    print(f"phase 15 (a) spatial (2,) b=1 bf16 layer by layer against "
+          f"meshless: {json.dumps(layers)}; with dropped_halo: "
+          f"{json.dumps(faulty)}; the outputs' gates with dropped_halo: "
+          f"float32 {fault[2]}, bfloat16 {fault[3]}, bfloat16 max |d| "
+          f"{json.dumps(fault[1])} ({card})", flush=True)
+    if not layers["rounding"]:
+        raise AssertionError(f"phase 15 (a): spatial (2,) departs from the "
+                             f"meshless forward by more than rounding: "
+                             f"{layers}")
+    if faulty["rounding"] or not fault[2] or not fault[3]:
+        raise AssertionError(f"phase 15 (a): a gate passes dropped_halo: "
+                             f"layers {faulty}, float32 {fault[2]}, "
+                             f"bfloat16 {fault[3]}")
     # each call: a spatial group launches one partials kernel a shard (every
     # shard of the 64-row heatmap has rows) and one merge; a data-only
     # group the unsharded forward
@@ -3742,6 +3885,9 @@ def phase15_meshes(cfg, sd, base, device, card: str, counts) -> dict:
           f"{MESH_LATENCY_REPS}; every mesh on one card): "
           + json.dumps(latency) + f" ({card})", flush=True)
     return dict(distances={f"{k[0]} b={k[1]}": v for k, v in result.items()},
+                bf16_floor=floor, layers=layers,
+                dropped_halo=dict(layers=faulty, float32=fault[2],
+                                  bfloat16=fault[3]),
                 launches=launches, latency_ms=latency)
 
 
@@ -3896,6 +4042,103 @@ def phase15_harness(folder: str, weights: str, test_dir: str, device,
     return dict(identical=identical, max_rel_diff=max(diffs.values()),
                 wide_fields=wide,
                 wall_s={k: b["wall_s"] for k, b in blocks.items()})
+
+
+# phase 16: cuDNN's layout transposes allowed a serving call and a step
+TRANSPOSE_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+LAYOUT_TRANSPOSE_MS = {"serve": 1.0, "train": 2.0}
+LAYOUT_SERVE_BATCH, LAYOUT_TRAIN_BATCH, LAYOUT_WARMUP = 128, 64, 2
+
+
+def is_batchnorm_kernel(name: str) -> bool:
+    low = name.lower()
+    return "bn_" in low or "batchnorm" in low or "batch_norm" in low
+
+
+def layout_report(times: dict, label: str, card: str) -> dict:
+    """From `profile_device`'s {name: [ms, count]} of one call or step:
+    the cuDNN transposes' ms and count, the BatchNorm kernels by name, the
+    busy ms and the top kernels, printed."""
+    def part(pick):
+        rows = {n: r for n, r in times.items() if pick(n)}
+        return dict(ms=sum(r[0] for r in rows.values()),
+                    count=sum(r[1] for r in rows.values()), kernels=rows)
+    transposes = part(lambda n: any(k in n for k in TRANSPOSE_KERNELS))
+    bn = part(is_batchnorm_kernel)
+    busy = sum(r[0] for r in times.values())
+    launches = sum(r[1] for r in times.values())
+    print(f"phase 16 {label}: cuDNN layout transposes {transposes['ms']:.3f}"
+          f" ms x{transposes['count']}, BatchNorm {bn['ms']:.3f} ms "
+          f"x{bn['count']}, device busy {busy:.3f} ms over {launches} "
+          f"device activities ({card})", flush=True)
+    for title, rows in (("transpose", transposes["kernels"]),
+                        ("batchnorm", bn["kernels"])):
+        for n, (ms, c) in sorted(rows.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {title} {ms:9.3f} ms x{c:<5} {n[:110]}")
+    for n, (ms, c) in sorted(times.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  top {ms:9.3f} ms x{c:<5} {n[:110]}")
+    return dict(transpose_ms=transposes["ms"],
+                transposes=transposes["count"], batchnorm_ms=bn["ms"],
+                batchnorm_kernels=bn["kernels"],
+                busy_ms=busy, device_activities=launches)
+
+
+def phase16_layout(device, card: str) -> dict:
+    """Phase 16 (module docstring): the cuDNN transposes and BatchNorm
+    kernels of one serving call and one stage-2 step at the cells'
+    sizes, and the FullNet's crop relayouts over them (none)."""
+    from horopose_tpu_torch.core.profiling import counter_deltas, counters
+    from horopose_tpu_torch.data.synthetic import synthetic_dream_batch
+    from horopose_tpu_torch.pipelines.common import (FullNetConfig,
+                                                     build_fullnet,
+                                                     crop_sizes, make_robot,
+                                                     random_state_dict)
+    from horopose_tpu_torch.predictor import Predictor
+    out = {}
+    before = dict(counters)
+
+    cfg = FullNetConfig()
+    pred = Predictor(cfg, random_state_dict(build_fullnet(cfg), SEED),
+                     device=device)
+    frames, K, bboxes = synthetic_requests(LAYOUT_SERVE_BATCH, SEED + 16)
+    for _ in range(LAYOUT_WARMUP):
+        pred(frames, K, bboxes)
+    times, _ = profile_device(lambda: pred(frames, K, bboxes))
+    out["serve"] = layout_report(
+        times, f"panda serving call b={LAYOUT_SERVE_BATCH}", card)
+    del pred
+
+    cfg = FullNetConfig(urdf_robot_name="baxter")
+    root_size, size = crop_sizes(cfg)
+    robot = make_robot(cfg, device=device)
+    batch = synthetic_dream_batch(robot, LAYOUT_TRAIN_BATCH, size, root_size,
+                                  SEED + 16, device=device)
+    sd = training_state_dict(build_fullnet(cfg), cfg, robot, batch, SEED)
+    model, step = make_train_step(cfg, sd, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for _ in range(LAYOUT_WARMUP):
+        step(batch, gen)
+    times, logs = profile_device(lambda: step(batch, gen))
+    if not bool(torch.isfinite(logs["loss"])):
+        raise AssertionError(f"phase 16: the baxter step's loss is "
+                             f"{float(logs['loss'])}")
+    out["train"] = layout_report(
+        times, f"baxter stage-2 step b={LAYOUT_TRAIN_BATCH}", card)
+    del model, step
+
+    out["input_relayouts"] = counter_deltas(before).get(
+        "fullnet.input_relayouts", 0)
+    print(f"phase 16 fullnet.input_relayouts over both paths: "
+          f"{out['input_relayouts']}", flush=True)
+    if out["input_relayouts"]:
+        raise AssertionError(f"phase 16: {out['input_relayouts']} crops "
+                             f"copied into channels_last")
+    for what, limit in LAYOUT_TRANSPOSE_MS.items():
+        if out[what]["transpose_ms"] > limit:
+            raise AssertionError(
+                f"phase 16: {out[what]['transpose_ms']:.3f} ms of cuDNN "
+                f"layout transposes in the {what} path, above {limit} ms")
+    return out
 
 
 def main() -> int:
@@ -4316,6 +4559,12 @@ def main() -> int:
 
     lap("15")
 
+    # ---- 16. the FullNet's memory format at the cells' sizes ----
+    layout = phase16_layout(device, card)
+    collect_garbage("after phase 16", card)
+
+    lap("16")
+
     # ---- 6. float32 comparisons, TF32 off everywhere ----
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4383,7 +4632,8 @@ def main() -> int:
                     stage3=stage3, variants=variants,
                     harness_with_plots=plots,
                     loader_close_s=loader_close_s, weights_and_export=phase12,
-                    data_parallel=phase13, learning_slice=phase14),
+                    data_parallel=phase13, learning_slice=phase14,
+                    memory_format=layout),
         kernel_line("soft_argmax_3d_bwd", sam_src,
                     "horopose_tpu/ops/integral_pallas.py:56", bwd_rows,
                     bwd_launches, [b_train, *cell], dx_tol),

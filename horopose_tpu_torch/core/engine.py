@@ -296,8 +296,10 @@ def compute_full_losses(cfg, preds: Mapping[str, torch.Tensor],
 
 
 def _normalize_images(x: torch.Tensor) -> torch.Tensor:
-    """uint8 (B, S, S, 3) -> float32 (B, 3, S, S) in [0, 1]."""
-    return (x.permute(0, 3, 1, 2).float() / 255.0).contiguous()
+    """uint8 (B, S, S, 3) -> float32 (B, 3, S, S) in [0, 1], channels_last:
+    the NHWC input's permuted view keeps its strides, so nothing is
+    copied."""
+    return x.permute(0, 3, 1, 2).float() / 255.0
 
 
 def _forward(cfg, model: nn.Module, robot: Robot, batch: Batch,

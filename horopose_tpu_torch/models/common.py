@@ -98,6 +98,24 @@ def init_like_flax_(model: nn.Module) -> nn.Module:
     return model
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d, every backbone's (`resnet.batch_norm`), with the
+    port's one choice of layout by platform: a channels_last train-mode
+    batch on the CPU is normalised in NCHW between two copies. ATen's CPU
+    kernel sums a channels_last batch's statistics in float32, where its
+    NCHW kernel sums in float64: about ten times the rounding of the
+    normalised output at a 4 x 64 x 32 x 32 batch, which a step amplifies
+    past the CPU tests' bounds. cuDNN on the card, every eval-mode call and
+    an NCHW input (the DepthNet's) take the input as it is."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and x.device.type == "cpu") or \
+                x.is_contiguous():
+            return super().forward(x)
+        return super().forward(x.contiguous()).contiguous(
+            memory_format=torch.channels_last)
+
+
 def train_with_frozen_batchnorm(model: nn.Module) -> nn.Module:
     """`model` in train mode (dropout on) with every BatchNorm module in
     eval mode; returns it."""

@@ -104,6 +104,7 @@ class RootNet(nn.Module):
         """x (B, 3, S, S) crop in [0, 1]; k_value (B,) or (B, 1).
 
         Returns depth (B, 1) in mm, or (B, 3) [x, y, depth] with pred_xy."""
+        x = x.contiguous()  # NCHW, whatever layout the crop arrives in
         with torch.autocast(x.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             fm = self.backbone(x)

@@ -1,4 +1,4 @@
-"""FullNet (RootNetwithRegInt): the holistic pose model, NCHW.
+"""FullNet (RootNetwithRegInt): the holistic pose model, in channels_last.
 
 Port of `horopose_tpu/models/full_net.py`, every flag. Two backbones: a
 rootnet backbone (hrnet32 by default) for the absolute root depth, and a
@@ -35,6 +35,21 @@ sqrt(2 / (K * D))), `decpose` and `decrot` Glorot-uniform, biases 0.
 backbones; `models/common.py::remat_call`), the JAX model's `remat`: the
 state dict and the results are the same, the activation memory less.
 
+Memory format: every tensor keeps its logical (B, C, H, W) shape, and the
+conv stacks hold their weights and activations in `torch.channels_last`
+(NHWC in memory), the layout cuDNN's and oneDNN's convolutions compute in,
+so no layout transposes run around them. A fresh model converts its 4-D
+parameters once, after drawing them; `load_state_dict` copies into them in
+place, and `.to(device)` and the optimizer's moments keep the format.
+`forward` takes crops in any layout and copies one that is not
+channels_last once (counter `fullnet.input_relayouts`; the normalisers of
+the train, eval and serving paths emit channels_last, so that stays 0
+there). The soft-argmax's reshape of
+the heatmap to (B*K, D, H, W) copies it into the contiguous layout the
+kernel reads. On the CPU a train-mode BatchNorm computes in NCHW between
+copies (`models/common.py::BatchNorm2d`: ATen's channels_last kernel there
+sums the statistics in float32).
+
 dtype bfloat16 runs the conv stacks under autocast; `depth_layer`, the fc
 bottleneck, the decoding and the MLP heads stay float32, as the JAX
 model's Dense layers do.
@@ -54,6 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horopose_tpu_torch.core.profiling import count
 from horopose_tpu_torch.models.common import init_like_flax_
 from horopose_tpu_torch.models.hrnet import get_hrnet
 from horopose_tpu_torch.models.resnet import batch_norm, get_resnet
@@ -70,6 +86,15 @@ _HRNETS = ("hrnet", "hrnet32", "hrnet48")
 
 def _hrnet_width(name: str) -> int:
     return 48 if str(name).endswith("48") else 32
+
+
+def _channels_last(x):
+    """`x` (B, C, H, W) itself where it is channels_last-contiguous, else
+    copied into channels_last, and the copy counted."""
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return x
+    count("fullnet.input_relayouts")
+    return x.contiguous(memory_format=torch.channels_last)
 
 
 class FullNet(nn.Module):
@@ -227,6 +252,8 @@ class FullNet(nn.Module):
         nn.init.xavier_uniform_(self.decrot.weight)
         if not reg_joint_map:
             nn.init.xavier_uniform_(self.decpose.weight)
+        # the conv weights in NHWC, the values as drawn (module docstring)
+        self.to(memory_format=torch.channels_last)
 
     def _autocast(self, x: torch.Tensor):
         return torch.autocast(x.device.type, dtype=torch.bfloat16,
@@ -269,7 +296,7 @@ class FullNet(nn.Module):
         """The root-depth branch alone: rootnet backbone -> pooling ->
         (bottleneck) -> depth_layer -> (B, 1) metres, as in forward."""
         with self._autocast(x_root):
-            img_feat = self._root_feature(x_root)
+            img_feat = self._root_feature(_channels_last(x_root))
         return self._root_depth(self._depths(img_feat, k_value))
 
     def keypoint_uvd(self, x_reg):
@@ -277,7 +304,7 @@ class FullNet(nn.Module):
         final_layer -> the 3-D soft-argmax -> uvd (B, K, 3), as in forward
         before the root fix and the lift to xyz."""
         with self._autocast(x_reg):
-            hm = self._reg_features(x_reg)[0]
+            hm = self._reg_features(_channels_last(x_reg))[0]
         n = self.image_size // 4
         return integral_uvd(hm, num_joints=self.num_keypoints,
                             depth_dim=self.depth_dim, height_dim=n,
@@ -337,7 +364,8 @@ class FullNet(nn.Module):
 
     def forward(self, x_reg, x_root, k_value, K,
                 generator: Optional[torch.Generator] = None):
-        """x_reg, x_root: (B, 3, S, S) float crops in [0, 1]; k_value (B,);
+        """x_reg, x_root: (B, 3, S, S) float crops in [0, 1], channels_last
+        (any other layout is copied into it once); k_value (B,);
         K (B, 3, 3) intrinsics of the reg crop; generator: the dropout masks'
         source, needed in train mode when p_dropout > 0.
 
@@ -347,6 +375,7 @@ class FullNet(nn.Module):
         multi_kp].
         """
         B = x_reg.shape[0]
+        x_reg, x_root = _channels_last(x_reg), _channels_last(x_root)
         with self._autocast(x_reg):
             img_feat = self._root_feature(x_root)
             hm, xf, x_out = self._reg_features(x_reg)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from horopose_tpu_torch.models.common import remat_call
+from horopose_tpu_torch.models.common import BatchNorm2d, remat_call
 
 RESNET_SPECS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -31,7 +31,7 @@ def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
 
 
 def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 def _downsample(cin: int, cout: int, stride: int):

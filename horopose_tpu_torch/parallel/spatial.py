@@ -30,7 +30,7 @@ The rules:
 | batch_norm (eval), relu, leaky_relu | local |
 | `a + b` | local once both share a row layout; `b` is resharded to `a`'s otherwise |
 | `.mean(dim=(2, 3))` | per-shard float32 sums, added on the group's first device, divided by the global H W, in the shards' dtype |
-| `.reshape` keeping the rows (the heads' (B, K*D, H, W) -> (B*K, D, H, W)), `.contiguous()` | per shard |
+| `.reshape` keeping the rows (the heads' (B, K*D, H, W) -> (B*K, D, H, W)), `.contiguous()`, `.is_contiguous()` (in any memory format) | per shard |
 | `ops/integral.py::heatmap_integral_joint` (reg_joint_map's 1-D soft-argmax, whose flatten mixes the rows) | the (B, dof, h, w) joint maps gathered whole onto the group's first device (`RowSharded.gathered`; 256 channels at 8x8 at full width), then the plain function |
 | the soft-argmax operator `horopose::soft_argmax_3d_fwd` | each shard's partial tuples (`ops/integral_cuda.py::soft_argmax_3d_partials`, its global row offset in the h index), copied to the group's first device and merged with the global H (`soft_argmax_3d_merge`); the heatmap never moves |
 
@@ -191,9 +191,13 @@ class RowSharded:
         return RowSharded([s.reshape(shape[0], shape[1], s.shape[2], w)
                            for s in self.shards], self.replicas)
 
-    def contiguous(self):
-        return RowSharded([s.contiguous() for s in self.shards],
-                          self.replicas)
+    def is_contiguous(self, memory_format=torch.contiguous_format) -> bool:
+        return all(s.is_contiguous(memory_format=memory_format)
+                   for s in self.shards)
+
+    def contiguous(self, memory_format=torch.contiguous_format):
+        return RowSharded([s.contiguous(memory_format=memory_format)
+                           for s in self.shards], self.replicas)
 
     def gathered(self) -> torch.Tensor:
         """The whole value as one tensor on the group's first device."""

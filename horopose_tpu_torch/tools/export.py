@@ -58,8 +58,9 @@ class ServingModule(nn.Module):
 
     @staticmethod
     def normalize(crops: torch.Tensor) -> torch.Tensor:
-        """uint8 (B, S, S, 3) crops -> float (B, 3, S, S) in [0, 1]."""
-        return (crops.permute(0, 3, 1, 2).float() / 255.0).contiguous()
+        """uint8 (B, S, S, 3) crops -> float (B, 3, S, S) in [0, 1],
+        channels_last (the FullNet's layout) without a copy."""
+        return crops.permute(0, 3, 1, 2).float() / 255.0
 
     def lift(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The FullNet's outputs with `xyz_fk`, the FK keypoints."""
